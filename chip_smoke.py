@@ -1,0 +1,362 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (`helmnet_tpu_torch`) on one NVIDIA card.
+
+    python3 chip_smoke.py [--out results.json]
+
+Drives the learned 2D solve at 96^2 x batch 32 x 500 iterations through
+`IterativeSolver.forward` with the fused DoubleConv kernel, and checks it:
+
+1. device: name, count, and `nvidia-smi`'s name and power limit;
+2. build: the `nvcc` build of the CUDA kernels, with ptxas's resource lines;
+3. kernel against plain version: each of the 14 DoubleConv calls of one
+   solver step, at their real shapes, against `double_conv_plain`
+   (atol 2e-2 * max|ref|, the JAX package's bound in
+   tests/test_pallas_pixconv.py);
+4. main path: trained weights (trained_models/round1_best_epoch890.npz)
+   and the first 32 maps of datasets/splitted_96/testset.npz, 500
+   iterations in 'pallas' mode. Exactly 14 x 500 kernel launches, finite
+   and falling rmse, and agreement with the same solve in 'xla' mode
+   (cuDNN, f32) and with the port's CPU path on a small input;
+5. times: each kernel shape beside its plain version, the cuDNN
+   DoubleConv and its bound (device time from CUDA events around a CUDA
+   graph replay, after a warm-up), and the rollout's gridpoints per
+   second in both modes (host clock around synchronised runs), and where
+   a step's time goes in both modes: wall and device time per step, the
+   device's busy share and the busiest kernels (torch.profiler over 50
+   steps).
+
+Needs one card. Without one, or without the package beside it, it exits
+non-zero before printing any result. A watchdog ends a hung run with a
+traceback. The last line is the JSON device record.
+"""
+
+import faulthandler
+import sys
+import time
+
+faulthandler.dump_traceback_later(420, exit=True)
+T0 = time.perf_counter()
+
+import argparse  # noqa: E402
+import dataclasses  # noqa: E402
+import json  # noqa: E402
+import subprocess  # noqa: E402
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+# Published H100 SXM peaks (NVIDIA data sheet, dense), at the full 700 W
+# power limit: bf16 products on the tensor cores (the DoubleConv's taps
+# and operands are bf16, its sums f32), f32 outside the tensor cores (the
+# rate the kernel's CUDA-core design can reach) and HBM3 bandwidth.
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_S = 3.35e12
+
+BATCH, GRID, ITERS = 32, 96, 500
+PROFILE_STEPS = 50
+KERNEL_RTOL = 2e-2  # atol = KERNEL_RTOL * max|ref| (test_pallas_pixconv.py:36)
+EARLY_RTOL = 0.05  # bf16 kernel vs f32 path, first 4 rmse (:125-127)
+LATE_FACTOR = 1.5  # rmse at the last iteration (tests/test_parity.py:94)
+
+
+def log(msg: str) -> None:
+    print(f"[{time.perf_counter() - T0:7.1f} s] {msg}", flush=True)
+
+
+def fail(msg: str):
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def cuda_ms(fn, iters: int = 50) -> float:
+    """Mean device time of fn() in ms: CUDA events around the replay of a
+    CUDA graph that holds `iters` calls, so no host time falls between
+    the launches. Warmed up on a side stream before capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profile_steps(solver, sos, steps: int) -> dict:
+    """Where a rollout's time goes: the wall per step of `steps` solver
+    steps on the host clock without the profiler, then the same steps
+    traced with torch.profiler for the device time per step, the device's
+    busy share (device time over that wall) and the busiest kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def device_us(evt) -> float:
+        return float(getattr(evt, "self_device_time_total", 0.0)
+                     or getattr(evt, "self_cuda_time_total", 0.0))
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    solver.forward(sos, num_iterations=steps)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        solver.forward(sos, num_iterations=steps)
+        torch.cuda.synchronize()
+    # device-side events only (kernels, copies, memsets): the CPU ops that
+    # launched them carry the same time again
+    kernels = sorted(
+        ((e.key, device_us(e), e.count) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and device_us(e) > 0),
+        key=lambda k: -k[1],
+    )
+    device_ms = sum(k[1] for k in kernels) / 1e3
+    return {
+        "wall_ms_per_step": 1e3 * wall_s / steps,
+        "device_ms_per_step": device_ms / steps,
+        "busy_share": device_ms / (1e3 * wall_s),
+        "top": [{"name": n[:80], "device_ms_per_step": us / 1e3 / steps,
+                 "calls_per_step": c / steps} for n, us, c in kernels[:12]],
+    }
+
+
+def step_calls(params, model, n: int):
+    """The 14 DoubleConv calls of one solver step: (name, params, grid,
+    input part channels)."""
+    f, sc, depth = model.features, model.state_channels, model.depth
+    calls = [("inc", params["inc"], n, (model.in_channels,))]
+    for d in range(depth):
+        blk = params["enc"][d]
+        calls.append((f"enc[{d}].conv_signal", blk["conv_signal"], n >> d, (f, sc)))
+        calls.append((f"enc[{d}].conv_state", blk["conv_state"], n >> d, (f, sc)))
+    calls.append((f"decode[{depth}]", params["decode"][depth], n >> depth, (f,)))
+    for d in range(depth - 1, 0, -1):
+        calls.append((f"decode[{d}]", params["decode"][d], n >> d, (f, f)))
+    post = dict(params["decode"][0], post=params["outc"])
+    calls.append(("decode[0]+outc", post, n, (f, f)))
+    return calls
+
+
+def bound(p, parts, out) -> tuple[float, float, float, float]:
+    """(flops, ops_ms, bytes_ms, cuda_core_ms) of one call: operations at
+    the bf16 tensor-core peak, and each input read once and each output
+    written once at the HBM rate; the bound is the larger of the two.
+    cuda_core_ms is the same operations at the f32 CUDA-core peak, the
+    ceiling of a kernel that runs its FMAs there."""
+    b, h, w, _ = out.shape
+    cin = sum(t.shape[-1] for t in parts)
+    cm, co = p["c1"]["w"].shape[0], p["c2"]["w"].shape[0]
+    macs = cin * cm * 9 + cm * co * 9
+    if "post" in p:
+        macs += co * p["post"]["w"].shape[0]
+    flops = 2.0 * b * h * w * macs
+    weights = sum(t.numel() for v in p.values() for t in v.values())
+    nbytes = 4.0 * (sum(t.numel() for t in parts) + out.numel() + weights)
+    return (flops, 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_S,
+            1e3 * flops / PEAK_F32_FLOPS)
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--out", help="also write the results as JSON here")
+    args = parser.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    from helmnet_tpu_torch import _build
+    from helmnet_tpu_torch.core.config import Config
+    from helmnet_tpu_torch.core.device import resolve_device
+    from helmnet_tpu_torch.models.blocks import conv2d, double_conv
+    from helmnet_tpu_torch.models.hybridnet import params_to
+    from helmnet_tpu_torch.ops.double_conv import double_conv_plain, fused_double_conv
+    from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
+    from helmnet_tpu_torch.weights import load_params_npz
+
+    # -- 1. device ---------------------------------------------------------
+    dev = resolve_device()  # cuda, TF32 off
+    kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    log(f"phase 1 device: {kind} x{count}; torch {torch.__version__} "
+        f"cuda {torch.version.cuda}; TF32 matmul "
+        f"{torch.backends.cuda.matmul.allow_tf32} cudnn "
+        f"{torch.backends.cudnn.allow_tf32}")
+    log(f"nvidia-smi: {smi}")
+
+    # -- 2. build ----------------------------------------------------------
+    built = _build.build(force=True)
+    log(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s")
+    for line in built.log.splitlines():  # registers, smem, spills
+        print(f"    {line.strip()}", flush=True)
+    _build.load_library()
+
+    cfg = Config.from_json_file("experiments/base.json")
+    model = dataclasses.replace(cfg.model, precision="default",
+                                double_conv_mode="pallas", up_mode="subpixel")
+    cfg_kernel = cfg.replace(model=model)
+    cfg_cudnn = cfg.replace(model=dataclasses.replace(model, double_conv_mode="xla"))
+    params = load_params_npz("trained_models/round1_best_epoch890.npz", cfg, device=dev)
+
+    # -- 3. kernel against plain version -----------------------------------
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = []
+    for name, p, n, cins in step_calls(params, model, GRID):
+        parts = tuple(torch.randn((BATCH, n, n, c), generator=gen, device=dev)
+                      for c in cins)
+        ref = double_conv_plain(p, parts)
+        got = fused_double_conv(p, parts)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+        log(f"phase 3 {name:20s} {'+'.join(map(str, cins)):>4s} -> "
+            f"{p['c1']['w'].shape[0]} -> {got.shape[-1]} @{n}^2: max|err| "
+            f"{err:.3e} (atol {KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"kernel disagrees with its plain version at {name}")
+        cases.append(dict(name=name, grid=n, cins=list(cins), params=p,
+                          parts=parts, out=got, max_abs_err=err))
+
+    # -- 4. main path --------------------------------------------------------
+    sos = np.load("datasets/splitted_96/testset.npz")["maps"][:BATCH]
+    solver = IterativeSolver(cfg_kernel, params=params)
+    fused_double_conv.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = solver.forward(sos, num_iterations=ITERS)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    launches = fused_double_conv.launches
+    rmse = out["rmse"].cpu().numpy()
+    wf = out["wavefield"]
+    log(f"phase 4 main path: {ITERS} iterations in {first_s:.2f} s, "
+        f"{launches} kernel launches; mean rmse {rmse[0].mean():.4e} -> "
+        f"{rmse[-1].mean():.4e}")
+    calls_per_step = len(cases)
+    if launches != calls_per_step * ITERS:
+        fail(f"{launches} kernel launches, expected {calls_per_step} x {ITERS}")
+    if rmse.shape != (ITERS, BATCH) or not np.all(np.isfinite(rmse)):
+        fail("rmse trace is not finite or has the wrong shape")
+    if tuple(wf.shape) != (BATCH, GRID, GRID, 2) or not bool(torch.isfinite(wf).all()):
+        fail("wavefield is not finite or has the wrong shape")
+    if not np.all(rmse[-1] < rmse[0]):
+        fail("rmse at the last iteration is not below the first")
+    cudnn_solver = IterativeSolver(cfg_cudnn, params=params)
+    ref_rmse = cudnn_solver.forward(sos, num_iterations=ITERS)["rmse"].cpu().numpy()
+    early = np.abs(rmse[:4] - ref_rmse[:4]) / np.abs(ref_rmse[:4])
+    late = np.maximum(rmse[-1] / ref_rmse[-1], ref_rmse[-1] / rmse[-1])
+    log(f"phase 4 against cuDNN f32: first 4 rmse max rel diff {early.max():.3e} "
+        f"(rtol {EARLY_RTOL}); last rmse ratio max {late.max():.3f} "
+        f"(limit {LATE_FACTOR})")
+    if early.max() > EARLY_RTOL or late.max() > LATE_FACTOR:
+        fail("the kernel path disagrees with the cuDNN path")
+    # the port's CPU path (held against the JAX package by the tests) on a
+    # small input: 2 samples, 4 iterations
+    small = dict(cfg=cfg_kernel, num_iterations=4)
+    src = solver.source.expand(2, -1, -1, -1)
+    on_card = rollout(params, solver.op, src, sos[:2], device=dev, **small)["rmse"]
+    on_cpu = rollout(params_to(params, "cpu"), solver.op.to("cpu"), src.cpu(),
+                     sos[:2], device="cpu", **small)["rmse"]
+    small_diff = (np.abs(on_card.cpu().numpy() - on_cpu.numpy()) / on_cpu.numpy()).max()
+    log(f"phase 4 against the CPU path (2 x 96^2, 4 iterations): max rel diff "
+        f"{small_diff:.3e} (rtol {EARLY_RTOL})")
+    if small_diff > EARLY_RTOL:
+        fail("the card disagrees with the port's CPU path")
+
+    # -- 5. times --------------------------------------------------------------
+    rows = []
+    for c in cases:
+        p, parts = c["params"], c["parts"]
+
+        def library(p=p, parts=parts):
+            x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            y = double_conv(p, x, model.activation_function, "highest")
+            return conv2d(p["post"], y) if "post" in p else y
+
+        kernel_ms = cuda_ms(lambda: fused_double_conv(p, parts))
+        plain_ms = cuda_ms(lambda: double_conv_plain(p, parts))
+        library_ms = cuda_ms(library)
+        flops, ops_ms, bytes_ms, cuda_core_ms = bound(p, parts, c["out"])
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        row = dict(name=c["name"], grid=c["grid"], cins=c["cins"],
+                   cmid=int(p["c1"]["w"].shape[0]), cout=int(c["out"].shape[-1]),
+                   ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+                   bound_ms=bound_ms, bound_by=bound_by, ops_ms=ops_ms,
+                   bytes_ms=bytes_ms, cuda_core_ms=cuda_core_ms,
+                   max_abs_err=c["max_abs_err"], gflops=flops / 1e9)
+        rows.append(row)
+        log(f"phase 5 {c['name']:20s} kernel {kernel_ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core ceiling "
+            f"{cuda_core_ms:.4f} ms")
+    rollouts = {}
+    for mode, s in (("pallas", solver), ("xla", cudnn_solver),
+                    ("xla", cudnn_solver), ("pallas", solver)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.forward(sos, num_iterations=ITERS)
+        torch.cuda.synchronize()
+        rollouts.setdefault(mode, []).append(time.perf_counter() - t)
+    gps = {m: BATCH * GRID * GRID * ITERS / min(ts) for m, ts in rollouts.items()}
+    log(f"phase 5 rollout {GRID}^2 x {BATCH} x {ITERS}: 'pallas' "
+        f"{gps['pallas']:.4e} gridpoints/s (runs {rollouts['pallas']} s), "
+        f"'xla' {gps['xla']:.4e} gridpoints/s (runs {rollouts['xla']} s)")
+
+    profiles = {}
+    for mode, s in (("pallas", solver), ("xla", cudnn_solver)):
+        r = profiles[mode] = profile_steps(s, sos, PROFILE_STEPS)
+        log(f"phase 5 profile '{mode}' {PROFILE_STEPS} steps: wall "
+            f"{r['wall_ms_per_step']:.4f} ms/step, device "
+            f"{r['device_ms_per_step']:.4f} ms/step, busy share "
+            f"{r['busy_share']:.4f}")
+        for k in r["top"]:
+            print(f"    {k['device_ms_per_step']:.5f} ms/step "
+                  f"{k['calls_per_step']:5.1f} calls/step  {k['name']}",
+                  flush=True)
+
+    total = lambda k: sum(r[k] for r in rows)
+    kernels = {"kernels": [{
+        "name": "fused_double_conv",
+        "route": "cuda",
+        "source": "helmnet_tpu_torch/csrc/double_conv.cu",
+        "replaces": "helmnet_tpu/ops/pallas_pixconv.py:251",
+        "launches": launches,
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        # times are per solver step: the sum over its 14 calls
+        "ms": total("ms"),
+        "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
+        "library_ms": total("library_ms"),
+    }]}
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump({"device": kind, "nvidia_smi": smi, "calls": rows,
+                       "rollout_seconds": rollouts, "gridpoints_per_s": gps,
+                       "first_rollout_s": first_s, "build_s": built.seconds,
+                       "profile": profiles,
+                       **kernels}, fh, indent=1)
+    log("done")
+    faulthandler.cancel_dump_traceback_later()
+    print(smi, flush=True)
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": count}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,218 @@
+"""HybridNet — the modified UNet with learned multi-resolution hidden state.
+
+Port of `helmnet_tpu/models/hybridnet.py`. The hidden states are an
+explicit tuple carried through the call:
+
+    out, new_states = apply(params, x, states, cfg=...)
+
+States are NHWC `[B, n_d, n_d, state_channels]` with n_d = domain_size/2^d
+for encoder level d < state_depth. `flatten_states` / `unflatten_states`
+keep the reference's flat `[B, C, sum(n_d^2)]` channel-first layout.
+
+`double_conv_mode='pallas'` (with precision 'default' and PReLU or ReLU)
+sends every DoubleConv to the fused CUDA kernel (ops/double_conv.py): 14
+per step at depth 4, with the 1x1 outc head folded into the last one. The
+JAX package falls back to XLA at the 24^2, 12^2 and 6^2 levels only
+because its TPU kernel packs 16 pixels per lane row
+(`pallas_pixconv.py:234-247`); the CUDA kernel masks ragged tiles and has
+no such limit, and the function computed is the same. A width the
+kernel does not take (more than 16 channels) raises there; it does not
+fall back. Otherwise (`'xla'`) the DoubleConvs are cuDNN convs in f32.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from ..core.config import ModelConfig
+from ..ops.double_conv import fused_double_conv
+from .blocks import (
+    conv2d,
+    conv_transpose2d,
+    conv_transpose2d_subpixel,
+    double_conv,
+    init_conv,
+    init_conv_transpose,
+    init_double_conv,
+)
+
+
+def states_dimension(domain_size, depth: int) -> list[tuple[int, int]]:
+    """Per-level state grid sizes [(H/2^d, W/2^d)]. `domain_size` may be an
+    int (square) or an (H, W) tuple."""
+    if isinstance(domain_size, int):
+        h = w = domain_size
+    else:
+        h, w = domain_size
+    return [(h // (2**d), w // (2**d)) for d in range(depth)]
+
+
+def init_params(generator: torch.Generator, cfg: ModelConfig):
+    """Random parameters in the port's layout, on the generator's device.
+
+    The draws differ from `jax.random`'s; weights shared with the JAX
+    package go through `weights.py`.
+    """
+    act = cfg.activation_function
+    gen = generator
+    params = {
+        "inc": init_double_conv(gen, cfg.in_channels, cfg.features, act),
+        "enc": [],
+        "decode": [],
+        "up": [],
+        "outc": init_conv(gen, 1, cfg.features, 2),
+    }
+    for d in range(cfg.depth):
+        use_state = d < cfg.state_depth
+        blk = {
+            "conv_signal": init_double_conv(
+                gen,
+                cfg.features + (cfg.state_channels if use_state else 0),
+                cfg.features,
+                act,
+            ),
+            "down": init_conv(gen, 8, cfg.features, cfg.features),
+        }
+        if use_state:
+            blk["conv_state"] = init_double_conv(
+                gen, cfg.features + cfg.state_channels, cfg.state_channels, act
+            )
+        params["enc"].append(blk)
+    for i in range(cfg.depth + 1):
+        cin = cfg.features + cfg.features * (i < cfg.depth)
+        params["decode"].append(init_double_conv(gen, cin, cfg.features, act))
+    for _ in range(cfg.depth):
+        params["up"].append(init_conv_transpose(gen, 8, cfg.features, cfg.features))
+    return params
+
+
+def init_states(
+    batch: int, domain_size, cfg: ModelConfig, dtype=torch.float32, device="cpu"
+) -> Tuple[torch.Tensor, ...]:
+    """Zero hidden states."""
+    dims = states_dimension(domain_size, cfg.depth)
+    return tuple(
+        torch.zeros((batch,) + dims[d] + (cfg.state_channels,), dtype=dtype,
+                    device=device)
+        for d in range(cfg.state_depth)
+    )
+
+
+def apply(
+    params,
+    x: torch.Tensor,
+    states: Sequence[torch.Tensor],
+    *,
+    cfg: ModelConfig,
+) -> tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """Forward pass. x: [B, H, W, in_channels] NHWC. Returns
+    (out[B, H, W, 2], new_states)."""
+    act = cfg.activation_function
+    prec = cfg.precision
+    use_kernel = (
+        cfg.double_conv_mode == "pallas"
+        and prec == "default"
+        and act in ("prelu", "relu")
+    )
+
+    def dconv(p, *parts, post=None):
+        if use_kernel:
+            fp = p if post is None else dict(p, post=post)
+            return fused_double_conv(fp, tuple(t.contiguous() for t in parts))
+        t = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+        h = double_conv(p, t, act, prec)
+        if post is not None:
+            h = conv2d(post, h, precision=prec)
+        return h
+
+    x = dconv(params["inc"], x)
+
+    inner_signals = []
+    new_states = []
+    for d in range(cfg.depth):
+        blk = params["enc"][d]
+        if d < cfg.state_depth:
+            out = dconv(blk["conv_signal"], x, states[d])
+            new_states.append(dconv(blk["conv_state"], out, states[d]))
+        else:
+            out = dconv(blk["conv_signal"], x)
+        inner_signals.append(out)
+        x = conv2d(blk["down"], out, stride=2, padding=3, precision=prec)
+
+    up = conv_transpose2d_subpixel if cfg.up_mode == "subpixel" else conv_transpose2d
+    x = dconv(params["decode"][-1], x)
+    for d in range(cfg.depth - 1, 0, -1):
+        x = up(params["up"][d], x, stride=2, padding=3, precision=prec)
+        x = dconv(params["decode"][d], x, inner_signals[d])
+    # last decoder level with the 1x1 outc head folded in
+    x = up(params["up"][0], x, stride=2, padding=3, precision=prec)
+    out = dconv(params["decode"][0], x, inner_signals[0], post=params["outc"])
+    return out, tuple(new_states)
+
+
+# ---------------------------------------------------------------------------
+# State pack/unpack — flat layout [B, C, sum(n_d^2)], channel-first
+# ---------------------------------------------------------------------------
+
+
+def flatten_states(states: Sequence[torch.Tensor]) -> torch.Tensor:
+    flat = []
+    for s in states:
+        b, h, w, c = s.shape
+        flat.append(s.permute(0, 3, 1, 2).reshape(b, c, h * w))
+    return torch.cat(flat, dim=2)
+
+
+def unflatten_states(
+    flat: torch.Tensor, domain_size, cfg: ModelConfig
+) -> Tuple[torch.Tensor, ...]:
+    dims = states_dimension(domain_size, cfg.depth)
+    states = []
+    start = 0
+    b, c = flat.shape[0], flat.shape[1]
+    for d in range(cfg.state_depth):
+        hd, wd = dims[d]
+        chunk = flat[:, :, start : start + hd * wd]
+        states.append(chunk.reshape(b, c, hd, wd).permute(0, 2, 3, 1).contiguous())
+        start += hd * wd
+    return tuple(states)
+
+
+def total_state_length(domain_size, cfg: ModelConfig) -> int:
+    dims = states_dimension(domain_size, cfg.depth)
+    return sum(h * w for h, w in dims[: cfg.state_depth])
+
+
+def iter_leaves(tree, prefix=""):
+    """(path, tensor) pairs in the JAX package's tree order: dict keys
+    sorted at every level, lists in order."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from iter_leaves(tree[k], f"{prefix}.{k}" if prefix else k)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from iter_leaves(v, f"{prefix}[{i}]")
+    else:
+        yield prefix, tree
+
+
+def map_leaves(tree, fn, prefix=""):
+    """The same tree with each leaf replaced by fn(path, leaf), paths as in
+    `iter_leaves`."""
+    if isinstance(tree, dict):
+        return {k: map_leaves(v, fn, f"{prefix}.{k}" if prefix else k)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [map_leaves(v, fn, f"{prefix}[{i}]") for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
+def count_params(params) -> int:
+    return sum(t.numel() for _, t in iter_leaves(params))
+
+
+def params_to(params, device):
+    """The same tree with every tensor moved to `device`."""
+    return map_leaves(params, lambda _, t: t.to(device))

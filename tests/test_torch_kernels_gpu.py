@@ -1,0 +1,144 @@
+"""Card-only tests: the port's CUDA kernels against their plain versions.
+
+On a machine with an NVIDIA Hopper card and nvcc:
+
+    python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest
+
+(`--noconftest` because tests/conftest.py imports JAX, which that machine
+does not have.) This file imports no JAX. Without a card every test skips,
+decided inside the `cuda` fixture.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from helmnet_tpu_torch.ops.double_conv import (
+    double_conv_plain,
+    fused_double_conv,
+)
+
+pytestmark = pytest.mark.gpu
+
+TOL = 2e-2  # atol = TOL * max|ref|, as tests/test_pallas_pixconv.py:36
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from helmnet_tpu_torch.core.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+def _conv(rng, cin, cout, k, device, scale):
+    w = rng.standard_normal((cout, cin, k, k)).astype(np.float32) * scale
+    b = rng.standard_normal(cout).astype(np.float32) * 0.1
+    return {"w": torch.tensor(w, device=device), "b": torch.tensor(b, device=device)}
+
+
+def _params(rng, cin, cmid, cout, device, act=True, c_emit=None):
+    p = {
+        "c1": _conv(rng, cin, cmid, 3, device, 0.3),
+        "act": {"a": torch.tensor([0.25], device=device)} if act else {},
+        "c2": _conv(rng, cmid, cout, 3, device, 0.3),
+    }
+    if c_emit is not None:
+        p["post"] = _conv(rng, cout, c_emit, 1, device, 0.5)
+    return p
+
+
+def _inputs(rng, b, h, w, cins, device):
+    return tuple(
+        torch.tensor(rng.standard_normal((b, h, w, c)).astype(np.float32),
+                     device=device)
+        for c in cins
+    )
+
+
+def _check(p, parts):
+    ref = double_conv_plain(p, parts)
+    got = fused_double_conv(p, parts)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    atol = TOL * ref.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=atol)
+
+
+@pytest.mark.parametrize(
+    "cins,cmid,cout,c_emit,h,w",
+    [
+        ((6,), 8, 8, None, 96, 96),       # inc
+        ((8, 2), 8, 8, None, 96, 96),     # enc signal with state
+        ((8, 2), 2, 2, None, 48, 48),     # enc state
+        ((8, 8), 8, 8, None, 24, 24),     # decode with skip
+        ((8,), 8, 8, None, 6, 6),         # deepest decode, one ragged tile
+        ((8, 8), 8, 8, 2, 96, 96),        # decode[0] with the outc head
+        ((16,), 16, 16, 16, 20, 36),      # widest channels, ragged tiles
+        ((3, 5), 3, 5, None, 17, 33),     # odd counts and sizes
+    ],
+)
+def test_kernel_matches_plain(cuda, cins, cmid, cout, c_emit, h, w):
+    rng = np.random.default_rng(0)
+    p = _params(rng, sum(cins), cmid, cout, cuda, c_emit=c_emit)
+    _check(p, _inputs(rng, 3, h, w, cins, cuda))
+
+
+def test_relu_without_slope(cuda):
+    rng = np.random.default_rng(1)
+    p = _params(rng, 6, 8, 8, cuda, act=False)
+    _check(p, _inputs(rng, 2, 32, 32, (6,), cuda))
+
+
+def test_split_first_conv_weights(cuda):
+    rng = np.random.default_rng(2)
+    p = _params(rng, 10, 8, 8, cuda)
+    w1 = p["c1"]["w"]
+    split = dict(p, c1={"w": (w1[:, :8].contiguous(), w1[:, 8:].contiguous()),
+                        "b": p["c1"]["b"]})
+    parts = _inputs(rng, 2, 32, 32, (8, 2), cuda)
+    torch.testing.assert_close(fused_double_conv(split, parts),
+                               fused_double_conv(p, parts))
+
+
+def test_side_stream(cuda):
+    rng = np.random.default_rng(3)
+    p = _params(rng, 16, 8, 8, cuda, c_emit=2)
+    parts = _inputs(rng, 4, 48, 48, (8, 8), cuda)
+    ref = fused_double_conv(p, parts)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        got = fused_double_conv(p, parts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref)
+
+
+def test_counts_launches(cuda):
+    rng = np.random.default_rng(4)
+    p = _params(rng, 6, 8, 8, cuda)
+    parts = _inputs(rng, 1, 16, 16, (6,), cuda)
+    before = fused_double_conv.launches
+    fused_double_conv(p, parts)
+    double_conv_plain(p, parts)
+    assert fused_double_conv.launches == before + 1
+
+
+def test_wrapper_rejects(cuda):
+    rng = np.random.default_rng(5)
+    p = _params(rng, 6, 8, 8, cuda)
+    x = _inputs(rng, 1, 16, 16, (6,), cuda)[0]
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_double_conv(p, x.transpose(1, 2))
+    with pytest.raises(ValueError, match="dtype"):
+        fused_double_conv(p, x.double())
+    with pytest.raises(ValueError, match="unsupported"):
+        wide = _params(rng, 18, 8, 8, cuda)
+        fused_double_conv(wide, _inputs(rng, 1, 16, 16, (18,), cuda))
+    with pytest.raises(ValueError, match="parts"):
+        three = _params(rng, 6, 8, 8, cuda)
+        fused_double_conv(three, _inputs(rng, 1, 16, 16, (2, 2, 2), cuda))
+    with pytest.raises(ValueError, match="on cpu"):
+        fused_double_conv(p, (x, x[..., :2].cpu().contiguous()))

@@ -4,7 +4,9 @@
     python3 chip_smoke.py [--out results.json]
 
 Drives the learned 2D solve at 96^2 x batch 32 x 500 iterations through
-`IterativeSolver.forward` with the fused DoubleConv kernel, and checks it:
+`IterativeSolver.forward` with the fused DoubleConv kernel K1, and the
+channel-packed solve at 256^2 x 16 x 50 through `rollout_packed` with the
+packed fused DoubleConv kernel K3, and checks both:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels, with ptxas's resource lines;
@@ -23,7 +25,22 @@ Drives the learned 2D solve at 96^2 x batch 32 x 500 iterations through
    second in both modes (host clock around synchronised runs), and where
    a step's time goes in both modes: wall and device time per step, the
    device's busy share and the busiest kernels (torch.profiler over 50
-   steps).
+   steps);
+6. K3 against its plain version: the 14 DoubleConv calls of one packed
+   step at 256^2, g = 16 (the trained weights packed by `pack_params`,
+   seeded random inputs), within atol 2e-2 * max|ref|, each beside its
+   plain version, the cuDNN f32 DoubleConv and its bound;
+7. the packed path: `rollout_packed` on the 16 maps of
+   datasets/eval256/maps.npz, g = 16, 50 iterations (bench.py:234) in
+   'pallas' mode. Exactly 14 x 50 K3 launches and no K1 launch, finite
+   rmse, the first 4 rmse within rtol 0.05 of the unpacked cuDNN-f32
+   rollout and the best rmse within a factor 1.5 of its best, packed
+   'xla' against unpacked 'xla' within rtol 1e-3 on the first 10 rmse,
+   and the card against the port's CPU path (16 maps at 96^2, 4
+   iterations) within rtol 0.05;
+8. throughput at 256^2 x 16 x 50 of packed 'pallas' (K3), packed 'xla'
+   (cuDNN), unpacked 'pallas' (K1) and unpacked 'xla', in turns within
+   this run, and torch.profiler over 10 packed 'pallas' steps.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -34,7 +51,7 @@ import faulthandler
 import sys
 import time
 
-faulthandler.dump_traceback_later(420, exit=True)
+faulthandler.dump_traceback_later(1000, exit=True)
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
@@ -55,6 +72,9 @@ PEAK_BYTES_S = 3.35e12
 
 BATCH, GRID, ITERS = 32, 96, 500
 PROFILE_STEPS = 50
+PACK_G, PACK_GRID, PACK_ITERS = 16, 256, 50  # bench.py:234 grid_256_packed
+PACK_PROFILE_STEPS = 10
+XLA_RTOL = 1e-3  # packed against unpacked, both f32 (the port tests' rtol)
 KERNEL_RTOL = 2e-2  # atol = KERNEL_RTOL * max|ref| (test_pallas_pixconv.py:36)
 EARLY_RTOL = 0.05  # bf16 kernel vs f32 path, first 4 rmse (:125-127)
 LATE_FACTOR = 1.5  # rmse at the last iteration (tests/test_parity.py:94)
@@ -92,11 +112,11 @@ def cuda_ms(fn, iters: int = 50) -> float:
     return start.elapsed_time(end) / iters
 
 
-def profile_steps(solver, sos, steps: int) -> dict:
-    """Where a rollout's time goes: the wall per step of `steps` solver
-    steps on the host clock without the profiler, then the same steps
-    traced with torch.profiler for the device time per step, the device's
-    busy share (device time over that wall) and the busiest kernels."""
+def profile_steps(run, steps: int) -> dict:
+    """Where a rollout's time goes: the wall per step of `run(steps)` on
+    the host clock without the profiler, then the same steps traced with
+    torch.profiler for the device time per step, the device's busy share
+    (device time over that wall) and the busiest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -106,11 +126,11 @@ def profile_steps(solver, sos, steps: int) -> dict:
 
     torch.cuda.synchronize()
     t = time.perf_counter()
-    solver.forward(sos, num_iterations=steps)
+    run(steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        solver.forward(sos, num_iterations=steps)
+        run(steps)
         torch.cuda.synchronize()
     # device-side events only (kernels, copies, memsets): the CPU ops that
     # launched them carry the same time again
@@ -165,6 +185,39 @@ def bound(p, parts, out) -> tuple[float, float, float, float]:
             1e3 * flops / PEAK_F32_FLOPS)
 
 
+def packed_step_calls(kparams, model, n: int):
+    """The 14 K3 calls of one packed step, from the params that
+    `prepare_k3` made: (name, prepared weights, grid, part channels)."""
+    from helmnet_tpu_torch.models.packed import K3_KEY
+
+    depth = model.depth
+    sites = [("inc", kparams["inc"], n)]
+    for d in range(depth):
+        blk = kparams["enc"][d]
+        sites.append((f"enc[{d}].conv_signal", blk["conv_signal"], n >> d))
+        sites.append((f"enc[{d}].conv_state", blk["conv_state"], n >> d))
+    sites.append((f"decode[{depth}]", kparams["decode"][depth], n >> depth))
+    for d in range(depth - 1, 0, -1):
+        sites.append((f"decode[{d}]", kparams["decode"][d], n >> d))
+    sites.append(("decode[0]+outc", kparams["decode"][0], n))
+    return [(name, p[K3_KEY], grid,
+             tuple(int(w.shape[1]) for w in p[K3_KEY].params["c1"]["w"]))
+            for name, p, grid in sites]
+
+
+def packed_bound(pw, parts, out) -> tuple[float, float, float, float]:
+    """`bound` for one K3 call: every product of the dense packed convs
+    (the kernel does not skip the block-diagonal zeros), and the bytes of
+    the f32 inputs and output, the bf16 weights and the f32 biases."""
+    b, h, w, _ = out.shape
+    macs = pw.cin * pw.cm * 9 + pw.cm * pw.co * 9 + pw.co * pw.ce
+    flops = 2.0 * b * h * w * macs
+    nbytes = (4.0 * (sum(t.numel() for t in parts) + out.numel())
+              + 2.0 * macs + 4.0 * (pw.cm + pw.co + pw.ce + 1))
+    return (flops, 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_S,
+            1e3 * flops / PEAK_F32_FLOPS)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -176,9 +229,12 @@ def main() -> int:
     from helmnet_tpu_torch import _build
     from helmnet_tpu_torch.core.config import Config
     from helmnet_tpu_torch.core.device import resolve_device
+    from helmnet_tpu_torch.data.ellipses import load_maps
     from helmnet_tpu_torch.models.blocks import conv2d, double_conv
     from helmnet_tpu_torch.models.hybridnet import params_to
+    from helmnet_tpu_torch.models.packed import pack_params, prepare_k3, rollout_packed
     from helmnet_tpu_torch.ops.double_conv import double_conv_plain, fused_double_conv
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
     from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
     from helmnet_tpu_torch.weights import load_params_npz
 
@@ -232,13 +288,15 @@ def main() -> int:
     # -- 4. main path --------------------------------------------------------
     sos = np.load("datasets/splitted_96/testset.npz")["maps"][:BATCH]
     solver = IterativeSolver(cfg_kernel, params=params)
-    fused_double_conv.launches = 0
+    fused_double_conv.launches = packed_double_conv.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = solver.forward(sos, num_iterations=ITERS)
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t
     launches = fused_double_conv.launches
+    if packed_double_conv.launches:
+        fail(f"{packed_double_conv.launches} K3 launches on the unpacked path")
     rmse = out["rmse"].cpu().numpy()
     wf = out["wavefield"]
     log(f"phase 4 main path: {ITERS} iterations in {first_s:.2f} s, "
@@ -317,7 +375,8 @@ def main() -> int:
 
     profiles = {}
     for mode, s in (("pallas", solver), ("xla", cudnn_solver)):
-        r = profiles[mode] = profile_steps(s, sos, PROFILE_STEPS)
+        r = profiles[mode] = profile_steps(
+            lambda n, s=s: s.forward(sos, num_iterations=n), PROFILE_STEPS)
         log(f"phase 5 profile '{mode}' {PROFILE_STEPS} steps: wall "
             f"{r['wall_ms_per_step']:.4f} ms/step, device "
             f"{r['device_ms_per_step']:.4f} ms/step, busy share "
@@ -327,7 +386,154 @@ def main() -> int:
                   f"{k['calls_per_step']:5.1f} calls/step  {k['name']}",
                   flush=True)
 
+    # -- 6. K3 against its plain version, and its times --------------------
+    g, n_pack = PACK_G, PACK_GRID
+    kparams = prepare_k3(pack_params(params, g), model, g, inc_splits=(2, 2, 2))
+    k3_rows = []
+    for name, pw, n, cins in packed_step_calls(kparams, model, n_pack):
+        parts = tuple(torch.randn((1, n, n, c), generator=gen, device=dev)
+                      for c in cins)
+        ref = double_conv_plain(pw.params, parts)
+        got = packed_double_conv(pw, parts)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+        log(f"phase 6 {name:20s} {'+'.join(map(str, cins)):>11s} -> {pw.cm} -> "
+            f"{got.shape[-1]} @{n}^2: max|err| {err:.3e} (atol "
+            f"{KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K3 disagrees with its plain version at {name}")
+        fp = pw.params
+        lib_p = dict(fp, c1={"w": torch.cat(fp["c1"]["w"], dim=1), "b": fp["c1"]["b"]})
+
+        def library(p=lib_p, parts=parts):
+            y = double_conv(p, torch.cat(parts, dim=-1), model.activation_function,
+                            "highest")
+            return conv2d(p["post"], y) if "post" in p else y
+
+        kernel_ms = cuda_ms(lambda: packed_double_conv(pw, parts))
+        plain_ms = cuda_ms(lambda: double_conv_plain(fp, parts))
+        library_ms = cuda_ms(library)
+        flops, ops_ms, bytes_ms, cuda_core_ms = packed_bound(pw, parts, got)
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        k3_rows.append(dict(
+            name=name, grid=n, cins=list(cins), cmid=pw.cm, cout=int(got.shape[-1]),
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, ops_ms=ops_ms, bytes_ms=bytes_ms,
+            cuda_core_ms=cuda_core_ms, max_abs_err=err, gflops=flops / 1e9,
+            tflops=flops / kernel_ms / 1e9))
+        log(f"phase 6 {name:20s} K3 {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} "
+            f"TFLOP/s), plain {plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core {cuda_core_ms:.4f} ms")
+        del parts, ref, got
+
+    # -- 7. the packed path ----------------------------------------------------
+    maps = load_maps("datasets/eval256/maps.npz")
+    b_pack = maps.shape[0]
+    if maps.shape != (16, n_pack, n_pack):
+        fail(f"datasets/eval256/maps.npz holds {maps.shape}, expected 16 maps at 256^2")
+    cfg_pack = cfg_kernel.replace(geometry=dataclasses.replace(
+        cfg.geometry, domain_size=n_pack))
+    cfg_pack_xla = cfg_cudnn.replace(geometry=cfg_pack.geometry)
+    solver256 = IterativeSolver(cfg_pack, params=params)
+    op256 = solver256.op
+    src256 = solver256.source.expand(b_pack, -1, -1, -1)
+
+    def packed_run(c, iters, collect=("rmse",)):
+        return rollout_packed(params, op256, src256, maps, cfg=c, g=g,
+                              num_iterations=iters, collect=collect)
+
+    def unpacked_run(c, iters, collect=("rmse",)):
+        return rollout(params, op256, src256, maps, cfg=c, num_iterations=iters,
+                       collect=collect)
+
+    fused_double_conv.launches = packed_double_conv.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pk = packed_run(cfg_pack, PACK_ITERS, ("rmse", "best"))
+    torch.cuda.synchronize()
+    pack_first_s = time.perf_counter() - t
+    k3_launches, k1_stray = packed_double_conv.launches, fused_double_conv.launches
+    pk_rmse = pk["rmse"].cpu().numpy()
+    pk_best = pk["best_rmse"].cpu().numpy()
+    log(f"phase 7 packed path: {PACK_ITERS} iterations of {b_pack} x {n_pack}^2, "
+        f"g={g}, in {pack_first_s:.2f} s; {k3_launches} K3 launches, {k1_stray} "
+        f"K1 launches; mean rmse {pk_rmse[0].mean():.4e} -> {pk_rmse[-1].mean():.4e}, "
+        f"best {pk_best.mean():.4e}")
+    if k3_launches != len(k3_rows) * PACK_ITERS or k1_stray:
+        fail(f"{k3_launches} K3 and {k1_stray} K1 launches, expected "
+             f"{len(k3_rows)} x {PACK_ITERS} and 0")
+    if pk_rmse.shape != (PACK_ITERS, b_pack) or not np.all(np.isfinite(pk_rmse)):
+        fail("packed rmse trace is not finite or has the wrong shape")
+    if tuple(pk["wavefield"].shape) != (b_pack, n_pack, n_pack, 2):
+        fail("packed wavefield has the wrong shape")
+    f32 = unpacked_run(cfg_pack_xla, PACK_ITERS, ("rmse", "best"))
+    f32_rmse = f32["rmse"].cpu().numpy()
+    f32_best = f32["best_rmse"].cpu().numpy()
+    early = np.abs(pk_rmse[:4] - f32_rmse[:4]) / np.abs(f32_rmse[:4])
+    best_ratio = np.maximum(pk_best / f32_best, f32_best / pk_best)
+    log(f"phase 7 against unpacked cuDNN f32: first 4 rmse max rel diff "
+        f"{early.max():.3e} (rtol {EARLY_RTOL}); best rmse ratio max "
+        f"{best_ratio.max():.3f} (limit {LATE_FACTOR}); f32 mean rmse "
+        f"{f32_rmse[0].mean():.4e} -> {f32_rmse[-1].mean():.4e}, best "
+        f"{f32_best.mean():.4e}")
+    if early.max() > EARLY_RTOL or best_ratio.max() > LATE_FACTOR:
+        fail("the packed K3 path disagrees with the unpacked cuDNN path")
+    pk_xla = packed_run(cfg_pack_xla, 10)["rmse"].cpu().numpy()
+    xla_diff = (np.abs(pk_xla - f32_rmse[:10]) / np.abs(f32_rmse[:10])).max()
+    log(f"phase 7 packed 'xla' against unpacked 'xla', first 10 rmse: max rel "
+        f"diff {xla_diff:.3e} (rtol {XLA_RTOL})")
+    if xla_diff > XLA_RTOL:
+        fail("packed cuDNN path disagrees with the unpacked one")
+    # the port's CPU path (plain K3, held against the JAX package by the
+    # tests) on 16 maps at 96^2, g = 16, 4 iterations
+    sos96 = np.load("datasets/splitted_96/testset.npz")["maps"][:b_pack]
+    src96 = solver.source.expand(b_pack, -1, -1, -1)
+    small = dict(cfg=cfg_kernel, g=g, num_iterations=4)
+    on_card = rollout_packed(params, solver.op, src96, sos96, **small)["rmse"]
+    on_cpu = rollout_packed(params_to(params, "cpu"), solver.op.to("cpu"),
+                            src96.cpu(), sos96, device="cpu", **small)["rmse"]
+    pack_cpu_diff = (np.abs(on_card.cpu().numpy() - on_cpu.numpy())
+                     / on_cpu.numpy()).max()
+    log(f"phase 7 packed against the CPU path ({b_pack} x 96^2, g={g}, 4 "
+        f"iterations): max rel diff {pack_cpu_diff:.3e} (rtol {EARLY_RTOL})")
+    if pack_cpu_diff > EARLY_RTOL:
+        fail("the packed path on the card disagrees with the port's CPU path")
+
+    # -- 8. throughput at 256^2 x 16 x 50, and a profile ------------------
+    configs = {
+        "packed 'pallas' (K3)": lambda: packed_run(cfg_pack, PACK_ITERS),
+        "packed 'xla' (cuDNN)": lambda: packed_run(cfg_pack_xla, PACK_ITERS),
+        "unpacked 'pallas' (K1)": lambda: unpacked_run(cfg_pack, PACK_ITERS),
+        "unpacked 'xla' (cuDNN)": lambda: unpacked_run(cfg_pack_xla, PACK_ITERS),
+    }
+    order = [*configs, *reversed(configs)]  # in turns: A B C D D C B A
+    unpacked_run(cfg_pack, 2)  # warm up the one configuration not run yet
+    pack_runs = {}
+    for key in order:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        configs[key]()
+        torch.cuda.synchronize()
+        pack_runs.setdefault(key, []).append(time.perf_counter() - t)
+    pack_gps = {k: b_pack * n_pack * n_pack * PACK_ITERS / min(ts)
+                for k, ts in pack_runs.items()}
+    for k in configs:
+        log(f"phase 8 {n_pack}^2 x {b_pack} x {PACK_ITERS} {k:24s} "
+            f"{pack_gps[k]:.4e} gridpoints/s (runs {pack_runs[k]} s)")
+    pack_profile = profile_steps(lambda n: packed_run(cfg_pack, n), PACK_PROFILE_STEPS)
+    log(f"phase 8 profile packed 'pallas' {PACK_PROFILE_STEPS} steps: wall "
+        f"{pack_profile['wall_ms_per_step']:.4f} ms/step, device "
+        f"{pack_profile['device_ms_per_step']:.4f} ms/step, busy share "
+        f"{pack_profile['busy_share']:.4f}")
+    for k in pack_profile["top"]:
+        print(f"    {k['device_ms_per_step']:.5f} ms/step "
+              f"{k['calls_per_step']:5.1f} calls/step  {k['name']}", flush=True)
+
     total = lambda k: sum(r[k] for r in rows)
+    k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
         "name": "fused_double_conv",
         "route": "cuda",
@@ -341,13 +547,39 @@ def main() -> int:
         "bound_ms": total("bound_ms"),
         "bound_by": "operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
         "library_ms": total("library_ms"),
+    }, {
+        "name": "packed_double_conv",
+        "route": "cuda",
+        "source": "helmnet_tpu_torch/csrc/packed_double_conv.cu",
+        "replaces": "helmnet_tpu/ops/pallas_unet.py:175",
+        "launches": k3_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in k3_rows),
+        # times are per packed step: the sum over its 14 calls
+        "ms": k3_total("ms"),
+        "plain_ms": k3_total("plain_ms"),
+        "bound_ms": k3_total("bound_ms"),
+        "bound_by": ("operations" if k3_total("ops_ms") >= k3_total("bytes_ms")
+                     else "bytes"),
+        "library_ms": k3_total("library_ms"),
     }]}
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"device": kind, "nvidia_smi": smi, "calls": rows,
                        "rollout_seconds": rollouts, "gridpoints_per_s": gps,
                        "first_rollout_s": first_s, "build_s": built.seconds,
-                       "profile": profiles,
+                       "profile": profiles, "k3_calls": k3_rows,
+                       "packed": {
+                           "first_rollout_s": pack_first_s,
+                           "rmse": pk_rmse.tolist(), "best_rmse": pk_best.tolist(),
+                           "f32_rmse": f32_rmse.tolist(),
+                           "f32_best_rmse": f32_best.tolist(),
+                           "early_rel_diff": float(early.max()),
+                           "best_ratio": float(best_ratio.max()),
+                           "xla_rel_diff": float(xla_diff),
+                           "cpu_rel_diff": float(pack_cpu_diff),
+                           "rollout_seconds": pack_runs,
+                           "gridpoints_per_s": pack_gps,
+                           "profile": pack_profile},
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

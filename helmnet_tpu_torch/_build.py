@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels: plain `nvcc`, bound with ctypes.
 
 The sources under `csrc/` have a plain C interface and include no PyTorch
-header, so one `nvcc` call builds them in seconds. The library goes to
+header. Each is compiled by its own `nvcc` process, all started together,
+and the objects are linked into one shared library. The library goes to
 `build/torch_kernels/libhelmnet_kernels_<sha1>.so` beside the package
 (`build/` is not committed); the name carries a digest of the sources and
 flags, so an edited source builds anew and an unchanged one is reused.
@@ -25,21 +26,29 @@ from dataclasses import dataclass
 from pathlib import Path
 
 PACKAGE_DIR = Path(__file__).resolve().parent
-SOURCES = (PACKAGE_DIR / "csrc" / "double_conv.cu",)
+SOURCES = (
+    PACKAGE_DIR / "csrc" / "double_conv.cu",
+    PACKAGE_DIR / "csrc" / "packed_double_conv.cu",
+)
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xptxas", "-v",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xptxas", "-v", "-Xcompiler", "-fPIC",
 )
 BUILD_TIMEOUT_S = 300
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # hn_double_conv(x1, c1, x2, c2, w1, b1, slope, w2, b2, w3, b3, out,
 #                B, H, W, cm, co, ce, stream)
+# hn_packed_double_conv(x0, c0, x1, c1, x2, c2, w1, b1, slope, w2, b2, w3,
+#                       b3, out, B, H, W, cm, co, ce, cmp, cop, cep, vec,
+#                       stream)
 _SIGNATURES = {
     "hn_double_conv": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                        _I, _I, _I, _I, _I, _I, _P],
+    "hn_packed_double_conv": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _P],
 }
 
 
@@ -73,24 +82,55 @@ def library_path() -> Path:
 
 
 def build(force: bool = False) -> BuildResult:
-    """Compile the sources into the shared library unless it exists."""
+    """Compile the sources into the shared library unless it exists: one
+    `nvcc -c` per source, run in parallel, then one link."""
     out = library_path()
     if out.exists() and not force:
         return BuildResult(out, 0.0, "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f".{out.stem}.{os.getpid()}.tmp.so")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
+    nvcc = find_nvcc()
+    tag = f"{out.stem}.{os.getpid()}"
+    tmp = out.with_name(f".{tag}.tmp.so")
+    objs = [out.with_name(f".{tag}.{src.stem}.o") for src in SOURCES]
     t0 = time.perf_counter()
+    procs: list[subprocess.Popen] = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True,
+        procs += [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        logs, failed = [], []
+        for src, proc in zip(SOURCES, procs):
+            try:
+                text, _ = proc.communicate(timeout=BUILD_TIMEOUT_S)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                text, _ = proc.communicate()
+                failed.append(f"{src.name}: timed out after {BUILD_TIMEOUT_S} s")
+            logs.append(f"== {src.name}\n{text}")
+            if proc.returncode != 0:
+                failed.append(f"{src.name}: nvcc exited {proc.returncode}")
+        log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({'; '.join(failed)}):\n{log}")
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True,
                               timeout=BUILD_TIMEOUT_S)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
         os.replace(tmp, out)
     finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
         tmp.unlink(missing_ok=True)
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     return BuildResult(out, seconds, log)
 
 

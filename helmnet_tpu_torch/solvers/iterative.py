@@ -365,3 +365,13 @@ class IterativeSolver:
             out["final_wavefield"] = out["wavefield"]
             out["wavefield"] = out["best_wavefield"]
         return out
+
+    @classmethod
+    def from_reference_checkpoint(cls, path: str, config: Optional[Config] = None,
+                                  device=None):
+        """Solver from the reference PyTorch-Lightning `.ckpt`, with the
+        checkpoint's config unless `config` is given."""
+        from ..train.checkpoint import load_reference_checkpoint
+
+        params, ckpt_cfg = load_reference_checkpoint(path, device=device)
+        return cls(config or ckpt_cfg, params=params, device=device)

@@ -142,3 +142,103 @@ def test_wrapper_rejects(cuda):
         fused_double_conv(three, _inputs(rng, 1, 16, 16, (2, 2, 2), cuda))
     with pytest.raises(ValueError, match="on cpu"):
         fused_double_conv(p, (x, x[..., :2].cpu().contiguous()))
+
+
+# ---------------------------------------------------------------------------
+# K3: the packed fused DoubleConv (ops/packed_double_conv.py)
+# ---------------------------------------------------------------------------
+
+
+def _check_k3(p, parts):
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv, prepare
+
+    ref = double_conv_plain(p, parts)
+    got = packed_double_conv(p, parts)
+    again = packed_double_conv(prepare(p), parts)
+    torch.cuda.synchronize()
+    assert got.shape == ref.shape
+    assert bool(torch.isfinite(got).all())
+    atol = TOL * ref.abs().max().item()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=atol)
+    torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize(
+    "cins,cmid,cout,c_emit,h,w",
+    [
+        ((32, 32, 32), 128, 128, None, 20, 36),   # inc at g=16, ragged tiles
+        ((128, 32), 128, 128, None, 33, 17),      # enc signal with state
+        ((128, 32), 32, 32, None, 16, 16),        # enc state
+        ((128,), 128, 128, None, 16, 16),         # deepest decode
+        ((128, 128), 128, 128, 32, 40, 24),       # decode[0] with the outc head
+        ((12, 20), 24, 16, None, 17, 33),         # narrow widths, padded
+        ((3, 5, 7), 10, 6, 5, 9, 11),             # odd widths: scalar loads
+        ((40,), 100, 70, 5, 7, 30),               # mid 100 in the 128 instance
+        ((16, 16), 128, 32, None, 8, 16),         # one whole tile
+    ],
+)
+def test_k3_matches_plain(cuda, cins, cmid, cout, c_emit, h, w):
+    rng = np.random.default_rng(0)
+    p = _params(rng, sum(cins), cmid, cout, cuda, c_emit=c_emit)
+    p["c1"]["w"] = p["c1"]["w"] * 0.3  # keep wide sums near unit scale
+    p["c2"]["w"] = p["c2"]["w"] * 0.3
+    w1 = p["c1"]["w"]
+    bounds = np.cumsum((0,) + cins)
+    split = dict(p, c1={"w": tuple(w1[:, a:b].contiguous()
+                                   for a, b in zip(bounds[:-1], bounds[1:])),
+                        "b": p["c1"]["b"]})
+    _check_k3(split, _inputs(rng, 2, h, w, cins, cuda))
+
+
+def test_k3_relu_without_slope(cuda):
+    rng = np.random.default_rng(1)
+    p = _params(rng, 96, 128, 128, cuda, act=False)
+    _check_k3(p, _inputs(rng, 1, 24, 24, (96,), cuda))
+
+
+def test_k3_side_stream(cuda):
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv, prepare
+
+    rng = np.random.default_rng(3)
+    p = prepare(_params(rng, 64, 32, 32, cuda, c_emit=8))
+    parts = _inputs(rng, 2, 40, 40, (64,), cuda)
+    ref = packed_double_conv(p, parts)
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        got = packed_double_conv(p, parts)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, ref)
+
+
+def test_k3_counts_launches(cuda):
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
+
+    rng = np.random.default_rng(4)
+    p = _params(rng, 32, 32, 32, cuda)
+    parts = _inputs(rng, 1, 16, 16, (32,), cuda)
+    before = packed_double_conv.launches
+    packed_double_conv(p, parts)
+    double_conv_plain(p, parts)
+    assert packed_double_conv.launches == before + 1
+
+
+def test_k3_wrapper_rejects(cuda):
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
+
+    rng = np.random.default_rng(5)
+    p = _params(rng, 32, 32, 32, cuda)
+    x = _inputs(rng, 1, 16, 16, (32,), cuda)[0]
+    with pytest.raises(ValueError, match="contiguous"):
+        packed_double_conv(p, x.transpose(1, 2))
+    with pytest.raises(ValueError, match="dtype"):
+        packed_double_conv(p, x.double())
+    with pytest.raises(ValueError, match="unsupported"):
+        wide = _params(rng, 32, 136, 32, cuda)
+        packed_double_conv(wide, x)
+    with pytest.raises(ValueError, match="unsupported"):
+        four = _params(rng, 32, 32, 32, cuda)
+        packed_double_conv(four, _inputs(rng, 1, 16, 16, (8, 8, 8, 8), cuda))
+    with pytest.raises(ValueError, match="on cpu"):
+        two = _params(rng, 40, 32, 32, cuda)
+        packed_double_conv(two, (x, x[..., :8].cpu().contiguous()))

@@ -4,9 +4,11 @@
     python3 chip_smoke.py [--out results.json]
 
 Drives the learned 2D solve at 96^2 x batch 32 x 500 iterations through
-`IterativeSolver.forward` with the fused DoubleConv kernel K1, and the
+`IterativeSolver.forward` with the fused DoubleConv kernel K1, the
 channel-packed solve at 256^2 x 16 x 50 through `rollout_packed` with the
-packed fused DoubleConv kernel K3, and checks both:
+packed fused DoubleConv kernel K3, the FD-stencil residual kernels K2a-c
+at bench.py's 512^2 x 8, and batched GMRES on the stencil operator at
+256^2 x 16, and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels, with ptxas's resource lines;
@@ -40,7 +42,33 @@ packed fused DoubleConv kernel K3, and checks both:
    iterations) within rtol 0.05;
 8. throughput at 256^2 x 16 x 50 of packed 'pallas' (K3), packed 'xla'
    (cuDNN), unpacked 'pallas' (K1) and unpacked 'xla', in turns within
-   this run, and torch.profiler over 10 packed 'pallas' steps.
+   this run, and torch.profiler over 10 packed 'pallas' steps;
+9. K2 at bench.py's stencil_spmv_512 shape (512^2 x 8, order 4, seeded
+   normal u): `residual_planes` (K2a), `residual_planes_tiled` (K2b,
+   tile_h=128) and `residual_planes_mxu` (K2c) against their plain
+   versions at atol 1e-5, 1e-5 and 2e-4 (tests/test_pallas_stencil.py:35,
+   90, 116), with k^2 = 1 and s = u (bench.py:258-267) and with random
+   k^2 and s; the same at order 2, on a ragged 40x72 grid (K2a) and
+   through the stride-2 channel-pair wrapper; each timed beside its bound,
+   its plain version and the library's form of the same function (one
+   cuSPARSE `torch.addmm` on the block-diagonal complex64 CSR of
+   `stencil_to_csr`, itself held against the plain version at atol 1e-4,
+   tests/test_pallas_stencil.py:51); then bench.py's chain of 100 applies
+   (c <- 0.999 c + 1e-3 r_re) through K2b with exactly 100 K2b launches,
+   and through K2c with exactly 100 K2c launches, held against the plain
+   chain, with bench.py's seconds per apply, gridpoints/s and nnz/s;
+10. `solve_helmholtz_batch` on the stencil operator for the 16 maps of
+   datasets/eval256/maps.npz (k^2 and source as phase 7 forms them),
+   restart 20, 10 restarts: exactly 1 + 10 x (20 + 2) = 221 K2a launches
+   and no other kernel launch, finite and non-increasing (factor
+   1 + 1e-3) residual histories ending below their start, the first 3
+   cycles within rtol 1e-6 of the same solve with the plain matvec on the
+   card; the wall of 3 more solves (median and best); K2a at the
+   matvec's own shape (stride-2 complex64 views, no source) against its
+   plain version at atol 1e-5, timed beside its bound, its plain version
+   and cuSPARSE; the 32^2 problem of tests/test_gmres.py:131-153 against
+   scipy's spsolve of `stencil_to_csr` within 5e-3 max|u|; K2's share of
+   a solve's device time (torch.profiler).
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -74,6 +102,17 @@ BATCH, GRID, ITERS = 32, 96, 500
 PROFILE_STEPS = 50
 PACK_G, PACK_GRID, PACK_ITERS = 16, 256, 50  # bench.py:234 grid_256_packed
 PACK_PROFILE_STEPS = 10
+SPMV_N, SPMV_B, SPMV_APPLIES = 512, 8, 100  # bench.py:259 stencil_spmv_512
+K2_ATOL = {"K2a": 1e-5, "K2b": 1e-5, "K2c": 2e-4}  # test_pallas_stencil.py:35,90,116
+GMRES_RESTART, GMRES_CYCLES = 20, 10
+# K2a repeats its plain version's roundings and the rest of the solve is
+# the same ops, so the gap measured on an H100 was 0; 1e-6 leaves room for
+# a reduction that the library orders otherwise
+GMRES_PLAIN_CYCLES, GMRES_PLAIN_RTOL = 3, 1e-6
+MONOTONE_SLACK = 1e-3  # restarted GMRES never rises, up to f32 round-off
+SCIPY_ATOL = 5e-3  # * max|u|, tests/test_gmres.py:153
+CSR_ATOL = 1e-4  # stencil_to_csr @ u against the kernel, test_pallas_stencil.py:51
+GMRES_TIMED = 3  # warm solves timed after the counted one
 XLA_RTOL = 1e-3  # packed against unpacked, both f32 (the port tests' rtol)
 KERNEL_RTOL = 2e-2  # atol = KERNEL_RTOL * max|ref| (test_pallas_pixconv.py:36)
 EARLY_RTOL = 0.05  # bf16 kernel vs f32 path, first 4 rmse (:125-127)
@@ -88,25 +127,34 @@ def fail(msg: str):
     raise SystemExit(f"chip_smoke: FAILED: {msg}")
 
 
-def cuda_ms(fn, iters: int = 50) -> float:
+def cuda_ms(fn, iters: int = 50, graph: bool = True) -> float:
     """Mean device time of fn() in ms: CUDA events around the replay of a
     CUDA graph that holds `iters` calls, so no host time falls between
-    the launches. Warmed up on a side stream before capture."""
+    the launches. Warmed up on a side stream before capture. With
+    graph=False the events bracket `iters` eager calls instead (for
+    library calls that are not known to be safe to capture)."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
-    graph.replay()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if not graph:
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / iters
+    cuda_graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(cuda_graph):
+        for _ in range(iters):
+            fn()
+    cuda_graph.replay()
     start.record()
-    graph.replay()
+    cuda_graph.replay()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
@@ -146,6 +194,7 @@ def profile_steps(run, steps: int) -> dict:
         "busy_share": device_ms / (1e3 * wall_s),
         "top": [{"name": n[:80], "device_ms_per_step": us / 1e3 / steps,
                  "calls_per_step": c / steps} for n, us, c in kernels[:12]],
+        "device_ms_by_name": {n: us / 1e3 / steps for n, us, _ in kernels},
     }
 
 
@@ -216,6 +265,45 @@ def packed_bound(pw, parts, out) -> tuple[float, float, float, float]:
               + 2.0 * macs + 4.0 * (pw.cm + pw.co + pw.ce + 1))
     return (flops, 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_S,
             1e3 * flops / PEAK_F32_FLOPS)
+
+
+def stencil_bound(radius: int, b: int, h: int, w: int,
+                  with_s: bool) -> tuple[float, float, float, float]:
+    """(bytes, flops, bytes_ms, ops_ms) of one fused stencil residual:
+    u (2 planes), k^2, s (2, when given) read once and r (2) written once,
+    plus the tap tables ([2r+1, W] and [2r+1, H], re and im); 16 flops per
+    tap and point (a complex multiply-add on each axis) and 4 for
+    k^2 u - s, at the f32 CUDA-core peak. K2c computes the same function:
+    the band entries it reads from the cached [W, W] matrices are the
+    tables' values again, so they add nothing to its bound."""
+    points = b * h * w
+    planes = 2 + 1 + (2 if with_s else 0) + 2
+    tables = 2 * (2 * radius + 1) * (h + w)
+    nbytes = 4.0 * (planes * points + tables)
+    flops = float(points) * (16 * (2 * radius + 1) + 4)
+    return nbytes, flops, 1e3 * nbytes / PEAK_BYTES_S, 1e3 * flops / PEAK_F32_FLOPS
+
+
+def stencil_csr(op, k_sq: torch.Tensor) -> torch.Tensor:
+    """The stencil operator plus diag(k^2) of every plane of k_sq
+    [B, H, W] as one block-diagonal complex64 CSR matrix on the card,
+    int32 indices: the library (cuSPARSE) form of the function K2
+    computes, for its `library_ms`. Built on the host with scipy from
+    `stencil_to_csr`; the port never calls it."""
+    import scipy.sparse as sp
+
+    from helmnet_tpu_torch.ops.stencil_residual import stencil_to_csr
+
+    blocks = sp.kron(sp.identity(k_sq.shape[0], format="csr"),
+                     stencil_to_csr(op), format="csr")
+    m = (blocks + sp.diags(k_sq.detach().cpu().numpy().astype(np.complex128)
+                           .ravel())).tocsr()
+    m.sort_indices()
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(m.indptr.astype(np.int32)),
+        torch.from_numpy(m.indices.astype(np.int32)),
+        torch.from_numpy(m.data.astype(np.complex64)),
+        size=m.shape, check_invariants=True).to(k_sq.device)
 
 
 def main() -> int:
@@ -532,6 +620,290 @@ def main() -> int:
         print(f"    {k['device_ms_per_step']:.5f} ms/step "
               f"{k['calls_per_step']:5.1f} calls/step  {k['name']}", flush=True)
 
+
+    # -- 9. K2 at bench.py's stencil_spmv_512 shape ------------------------
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.source import point_source_map
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+    from helmnet_tpu_torch.solvers.gmres import (gmres_restarted_batch,
+                                                 solve_helmholtz,
+                                                 solve_helmholtz_batch)
+    from helmnet_tpu_torch.solvers.iterative import get_initials
+
+    geo = cfg.geometry
+    n, b = SPMV_N, SPMV_B
+    entries = {
+        "K2a": (sr.residual_planes, sr.residual_planes_plain),
+        "K2b": (lambda *a, **k: sr.residual_planes_tiled(*a, tile_h=128, **k),
+                sr.residual_planes_plain),
+        "K2c": (lambda *a, **k: sr.residual_planes_mxu(*a, tile_h=128, **k),
+                sr.residual_planes_mxu_plain),
+    }
+    launch_counts = lambda: (sr.residual_planes.launches,
+                             sr.residual_planes_tiled.launches,
+                             sr.residual_planes_mxu.launches,
+                             fused_double_conv.launches,
+                             packed_double_conv.launches)
+    rng = np.random.default_rng(0)
+    on_card = lambda a: torch.tensor(a.astype(np.float32), device=dev)
+    ur = on_card(rng.standard_normal((b, n, n)))
+    ui = on_card(rng.standard_normal((b, n, n)))
+    ones = torch.ones((b, n, n), device=dev)
+    k_rand = on_card(rng.uniform(0.5, 1.2, (b, n, n)))
+    s_re = on_card(rng.standard_normal((b, n, n)))
+    s_im = on_card(rng.standard_normal((b, n, n)))
+    k2_errs = {k: 0.0 for k in entries}
+
+    def k2_check(label, op, key, inputs):
+        kernel, plain = entries[key]
+        got, ref = kernel(op, *inputs), plain(op, *inputs)
+        torch.cuda.synchronize()
+        err = max((g - r).abs().max().item() for g, r in zip(got, ref))
+        ok = all(bool(torch.isfinite(g).all()) for g in got) and err <= K2_ATOL[key]
+        log(f"phase 9 {key} {label}: max|err| {err:.3e} (atol {K2_ATOL[key]}) "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"{key} disagrees with its plain version ({label})")
+        k2_errs[key] = max(k2_errs[key], err)
+
+    for order in (4, 2):
+        st = make_stencil_operator(n, n, geo.pml_size, geo.sigma_max, cfg.k0,
+                                   order=order, device=dev)
+        for label, inputs in (("k^2 = 1, s = u", (ur, ui, ones, ur, ui)),
+                              ("random k^2 and s", (ur, ui, k_rand, s_re, s_im))):
+            for key in entries:
+                k2_check(f"{n}^2 x {b}, order {order}, {label}", st, key, inputs)
+    st = make_stencil_operator(n, n, geo.pml_size, geo.sigma_max, cfg.k0,
+                               order=4, device=dev)
+    st_ragged = make_stencil_operator(40, 72, geo.pml_size, geo.sigma_max, cfg.k0,
+                                      order=4, device=dev)
+    rag = (ur[:, :40, :72].contiguous(), ui[:, :40, :72].contiguous(),
+           k_rand[:, :40, :72].contiguous(), s_re[:, :40, :72].contiguous(),
+           s_im[:, :40, :72].contiguous())
+    k2_check("ragged 40x72, order 4", st_ragged, "K2a", rag)
+    u_pair = torch.stack([ur, ui], -1)
+    s_pair = torch.stack([s_re, s_im], -1)
+    pair_got = sr.helmholtz_residual_kernel(st, u_pair, k_rand, s_pair)
+    pair_ref = torch.stack(sr.residual_planes_plain(st, ur, ui, k_rand, s_re, s_im), -1)
+    torch.cuda.synchronize()
+    pair_err = (pair_got - pair_ref).abs().max().item()
+    log(f"phase 9 channel-pair wrapper (stride-2 halves) {n}^2 x {b}: max|err| "
+        f"{pair_err:.3e} (atol {K2_ATOL['K2b']})")
+    if not pair_err <= K2_ATOL["K2b"]:
+        fail("the channel-pair wrapper disagrees with the plain version")
+    del u_pair, s_pair, pair_got, pair_ref
+
+    btr, bti = sr.banded_matrices(st)
+    k2_rows = {}
+    k2_args = (ur, ui, k_rand, s_re, s_im)
+    # the library's form of the same function: one cuSPARSE product
+    # -s + A u on the block-diagonal CSR, on complex64 copies of u and s
+    csr512 = stencil_csr(st, k_rand)
+    u_col = torch.complex(ur, ui).reshape(-1, 1)
+    s_col = torch.complex(s_re, s_im).reshape(-1, 1)
+    spmm = lambda: torch.addmm(s_col, csr512, u_col, beta=-1)
+    csr_err = (spmm() - torch.complex(*sr.residual_planes_plain(st, *k2_args))
+               .reshape(-1, 1)).abs().max().item()
+    library512_ms = cuda_ms(spmm, iters=20, graph=False)
+    log(f"phase 9 cuSPARSE addmm on the block-diagonal complex64 CSR "
+        f"({csr512.values().numel()} nonzeros) {n}^2 x {b}: {library512_ms:.4f} ms, "
+        f"max|err| against the plain version {csr_err:.3e} (atol {CSR_ATOL})")
+    if not csr_err <= CSR_ATOL:
+        fail("the CSR matrix does not compute the stencil residual")
+    del csr512, u_col, s_col
+    for key, (kernel, plain) in entries.items():
+        kernel_ms = cuda_ms(lambda: kernel(st, *k2_args), iters=100)
+        plain_ms = cuda_ms(lambda: plain(st, *k2_args), iters=20)
+        nbytes, flops, bytes_ms, ops_ms = stencil_bound(st.radius, b, n, n, True)
+        row = dict(name=key, ms=kernel_ms, plain_ms=plain_ms,
+                   bound_ms=max(bytes_ms, ops_ms),
+                   bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   bytes_ms=bytes_ms, ops_ms=ops_ms, mbytes=nbytes / 1e6,
+                   gb_per_s=nbytes / kernel_ms / 1e6, max_abs_err=k2_errs[key],
+                   library_ms=library512_ms)
+        if key == "K2c":  # context: the dense banded x products in f32
+            row["banded_matmul_ms"] = cuda_ms(
+                lambda: (ur @ btr - ui @ bti, ur @ bti + ui @ btr), iters=20)
+        k2_rows[key] = row
+        log(f"phase 9 {key} {n}^2 x {b}: kernel {kernel_ms:.4f} ms "
+            f"({row['gb_per_s']:.1f} GB/s), plain {plain_ms:.4f} ms, cuSPARSE "
+            f"{library512_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.2f} MB)"
+            + (f", dense banded f32 matmuls {row['banded_matmul_ms']:.4f} ms"
+               if key == "K2c" else ""))
+
+    def chain(fn, applies=SPMV_APPLIES):
+        c = ur
+        for _ in range(applies):
+            rr, _ri = fn(st, c, ui, ones, c, ui)
+            c = c * 0.999 + rr * 1e-3
+        return c
+
+    chains = {}
+    for key in ("K2b", "K2c"):
+        sr.reset_launches()
+        fused_double_conv.launches = packed_double_conv.launches = 0
+        torch.cuda.synchronize()
+        c_kernel = chain(entries[key][0])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = (0, SPMV_APPLIES, 0, 0, 0) if key == "K2b" else (0, 0, SPMV_APPLIES, 0, 0)
+        log(f"phase 9 chain of {SPMV_APPLIES} applies through {key}: launches "
+            f"K2a/K2b/K2c/K1/K3 {counts}")
+        if counts != want:
+            fail(f"the {key} chain launched {counts}, expected {want}")
+        chain_err = (c_kernel - chain(entries[key][1])).abs().max().item()
+        if not chain_err <= K2_ATOL[key]:
+            fail(f"the {key} chain disagrees with the plain chain: {chain_err:.3e}")
+        ts = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            chain(entries[key][0])
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t)
+        dt = min(ts) / SPMV_APPLIES
+        chains[key] = {"launches": counts[1] if key == "K2b" else counts[2],
+                       "max_abs_err_vs_plain": chain_err, "runs_s": ts,
+                       "seconds_per_apply": dt,
+                       "gridpoints_per_s": b * n * n / dt,
+                       "nnz_per_s": b * n * n * (4 * st.radius + 1) / dt}
+        log(f"phase 9 chain {key}: {dt * 1e6:.2f} us per apply (best of 3), "
+            f"{b * n * n / dt:.4e} gridpoints/s, "
+            f"{chains[key]['nnz_per_s']:.4e} nnz/s; final c within "
+            f"{chain_err:.3e} of the plain chain")
+    del ur, ui, ones, k_rand, s_re, s_im, k2_args, btr, bti
+
+    # -- 10. batched GMRES on the stencil operator ---------------------------
+    st256 = make_stencil_operator(n_pack, n_pack, geo.pml_size, geo.sigma_max,
+                                  cfg.k0, order=4, device=dev)
+    k_sq256, _ = get_initials(torch.tensor(maps, device=dev), cfg.source.omega)
+    b256 = torch.complex(src256[..., 0], src256[..., 1]).contiguous()
+    gm = dict(restart=GMRES_RESTART, max_restarts=GMRES_CYCLES, device=dev)
+    sr.reset_launches()
+    fused_double_conv.launches = packed_double_conv.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = solve_helmholtz_batch(st256, k_sq256, src256, **gm)
+    torch.cuda.synchronize()
+    gmres_s = time.perf_counter() - t
+    gmres_counts = launch_counts()
+    want_k2a = 1 + GMRES_CYCLES * (GMRES_RESTART + 2)
+    rn = res.residual_norms.cpu().numpy()
+    log(f"phase 10 GMRES({GMRES_RESTART}) x {GMRES_CYCLES} on the stencil operator, "
+        f"{b_pack} x {n_pack}^2: {gmres_s:.3f} s; launches K2a/K2b/K2c/K1/K3 "
+        f"{gmres_counts}; relative residual {np.mean(rn[:, -1] / rn[:, 0]):.4e} "
+        f"(mean), {np.max(rn[:, -1] / rn[:, 0]):.4e} (worst)")
+    if gmres_counts != (want_k2a, 0, 0, 0, 0):
+        fail(f"GMRES launched {gmres_counts}, expected ({want_k2a}, 0, 0, 0, 0)")
+    if rn.shape != (b_pack, GMRES_CYCLES + 1) or not np.all(np.isfinite(rn)):
+        fail("GMRES residual histories are not finite or have the wrong shape")
+    rise = np.max(rn[:, 1:] / rn[:, :-1])
+    if rise > 1 + MONOTONE_SLACK:
+        fail(f"a GMRES residual history rises by a factor {rise:.6f}")
+    if not np.all(rn[:, -1] < rn[:, 0]):
+        fail("a GMRES residual did not fall below its start")
+    if tuple(res.x.shape) != (b_pack, n_pack, n_pack, 2) or not bool(
+            torch.isfinite(res.x).all()):
+        fail("the GMRES solution is not finite or has the wrong shape")
+
+    def plain_mv(u):
+        p = torch.view_as_real(u)
+        rr, ri = sr.residual_planes_plain(st256, p[..., 0], p[..., 1], k_sq256)
+        return torch.complex(rr, ri)
+
+    plain = gmres_restarted_batch(plain_mv, b256, restart=GMRES_RESTART,
+                                  max_restarts=GMRES_PLAIN_CYCLES)
+    head = rn[:, : GMRES_PLAIN_CYCLES + 1]
+    plain_gap = np.max(np.abs(head - plain.residual_norms.cpu().numpy()) / head)
+    log(f"phase 10 first {GMRES_PLAIN_CYCLES} cycles against the plain matvec on "
+        f"the card: max rel diff {plain_gap:.3e} (rtol {GMRES_PLAIN_RTOL})")
+    if not plain_gap <= GMRES_PLAIN_RTOL:
+        fail("GMRES with K2 disagrees with GMRES on the plain matvec")
+    del plain
+    gmres_runs = []
+    for _ in range(GMRES_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        solve_helmholtz_batch(st256, k_sq256, src256, **gm)
+        torch.cuda.synchronize()
+        gmres_runs.append(time.perf_counter() - t)
+    gmres_wall = float(np.median(gmres_runs))
+    log(f"phase 10 wall of {GMRES_TIMED} solves after the counted one: median "
+        f"{gmres_wall:.4f} s, best {min(gmres_runs):.4f} s; the counted (first) "
+        f"solve {gmres_s:.4f} s")
+
+    # K2a at its main path's shape: GMRES's matvec, stride-2 views of
+    # complex64 through the channel-pair wrapper, s = None
+    u_cx = torch.complex(on_card(rng.standard_normal((b_pack, n_pack, n_pack))),
+                         on_card(rng.standard_normal((b_pack, n_pack, n_pack))))
+    pair = torch.view_as_real(u_cx)
+    matvec = lambda: sr.helmholtz_residual_kernel(st256, pair, k_sq256)
+    matvec_plain = lambda: sr.residual_planes_plain(st256, pair[..., 0],
+                                                    pair[..., 1], k_sq256)
+    before = launch_counts()
+    got = matvec()
+    if launch_counts() != (before[0] + 1,) + before[1:]:
+        fail("GMRES's matvec shape did not go to K2a")
+    ref = torch.complex(*matvec_plain())
+    main_err = (torch.view_as_complex(got) - ref).abs().max().item()
+    csr256 = stencil_csr(st256, k_sq256)
+    u_col = u_cx.reshape(-1, 1)
+    spmm = lambda: torch.mm(csr256, u_col)
+    csr_err = (spmm() - ref.reshape(-1, 1)).abs().max().item()
+    nbytes, _, bytes_ms, ops_ms = stencil_bound(st256.radius, b_pack, n_pack,
+                                                n_pack, False)
+    k2a_main = dict(ms=cuda_ms(matvec, iters=100),
+                    plain_ms=cuda_ms(matvec_plain, iters=20),
+                    library_ms=cuda_ms(spmm, iters=20, graph=False),
+                    bound_ms=max(bytes_ms, ops_ms),
+                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                    mbytes=nbytes / 1e6, max_abs_err=main_err,
+                    library_max_abs_err=csr_err)
+    log(f"phase 10 K2a at GMRES's matvec ({b_pack} x {n_pack}^2 complex64, "
+        f"stride 2, no source): max|err| {main_err:.3e} (atol {K2_ATOL['K2a']}); "
+        f"kernel {k2a_main['ms']:.4f} ms "
+        f"({nbytes / k2a_main['ms'] / 1e6:.1f} GB/s), plain "
+        f"{k2a_main['plain_ms']:.4f} ms, cuSPARSE mm {k2a_main['library_ms']:.4f} ms "
+        f"(max|err| {csr_err:.3e}, atol {CSR_ATOL}), bound "
+        f"{k2a_main['bound_ms']:.4f} ms ({k2a_main['bound_by']}; {nbytes / 1e6:.2f} MB)")
+    if not (main_err <= K2_ATOL["K2a"] and bool(torch.isfinite(got).all())):
+        fail("K2a disagrees with its plain version at GMRES's matvec")
+    if not csr_err <= CSR_ATOL:
+        fail("the CSR matrix does not compute GMRES's matvec")
+    del u_cx, pair, got, ref, csr256, u_col
+
+    import scipy.sparse.linalg as spla
+
+    n32 = 32
+    sos32 = np.ones((n32, n32), np.float32)
+    sos32[10:20, 8:26] = 1.5
+    k32 = (1.0 / sos32) ** 2
+    src32 = point_source_map(n32, n32, (n32 - 8, n32 // 2), 10.0)
+    st32 = make_stencil_operator(n32, n32, 4, 2.0, 1.0, order=4, device=dev)
+    x32 = solve_helmholtz(st32, k32, src32, restart=40, max_restarts=30, tol=1e-6,
+                          device=dev).x.cpu().numpy()
+    u_direct = spla.spsolve(sr.stencil_to_csr(st32, k32).tocsc(),
+                            (src32[..., 0] + 1j * src32[..., 1]).ravel()).reshape(n32, n32)
+    scipy_err = np.abs(x32[..., 0] + 1j * x32[..., 1] - u_direct).max()
+    scipy_scale = np.abs(u_direct).max()
+    log(f"phase 10 {n32}^2 GMRES on the card against scipy spsolve: max|err| "
+        f"{scipy_err:.3e} (atol {SCIPY_ATOL * scipy_scale:.3e})")
+    if not scipy_err <= SCIPY_ATOL * scipy_scale:
+        fail("GMRES on the card does not solve the stencil system")
+    gmres_profile = profile_steps(
+        lambda _: solve_helmholtz_batch(st256, k_sq256, src256, **gm), 1)
+    k2_device_ms = sum(ms for name, ms in gmres_profile["device_ms_by_name"].items()
+                       if "stencil_residual" in name)
+    gmres_profile["k2_share"] = k2_device_ms / gmres_profile["device_ms_per_step"]
+    log(f"phase 10 profile of one solve: wall {gmres_profile['wall_ms_per_step']:.1f} "
+        f"ms, device {gmres_profile['device_ms_per_step']:.3f} ms (busy share "
+        f"{gmres_profile['busy_share']:.4f}); K2 {k2_device_ms:.3f} ms, "
+        f"{gmres_profile['k2_share']:.4f} of the device time")
+    for k in gmres_profile["top"][:8]:
+        print(f"    {k['device_ms_per_step']:.5f} ms {k['calls_per_step']:7.0f} "
+              f"calls  {k['name']}", flush=True)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -561,7 +933,29 @@ def main() -> int:
         "bound_by": ("operations" if k3_total("ops_ms") >= k3_total("bytes_ms")
                      else "bytes"),
         "library_ms": k3_total("library_ms"),
-    }]}
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "helmnet_tpu_torch/csrc/stencil_residual.cu",
+        "replaces": replaces,
+        "launches": launches_k2,
+        "max_abs_err": row["max_abs_err"],
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],  # cuSPARSE on the complex64 CSR
+    } for name, replaces, launches_k2, row in (
+        # per call on each kernel's main path: K2a at GMRES's matvec
+        # (16 x 256^2 complex64, no source), K2b and K2c at 512^2 x 8
+        ("residual_planes", "helmnet_tpu/ops/pallas_stencil.py:212",
+         gmres_counts[0], dict(k2a_main, max_abs_err=max(
+             k2a_main["max_abs_err"], k2_rows["K2a"]["max_abs_err"]))),
+        ("residual_planes_tiled", "helmnet_tpu/ops/pallas_stencil.py:161",
+         chains["K2b"]["launches"], k2_rows["K2b"]),
+        ("residual_planes_mxu", "helmnet_tpu/ops/pallas_stencil.py:452",
+         chains["K2c"]["launches"], k2_rows["K2c"]),
+    )]}
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"device": kind, "nvidia_smi": smi, "calls": rows,
@@ -580,6 +974,15 @@ def main() -> int:
                            "rollout_seconds": pack_runs,
                            "gridpoints_per_s": pack_gps,
                            "profile": pack_profile},
+                       "k2_calls": k2_rows, "k2_chains": chains,
+                       "gmres": {
+                           "seconds_first": gmres_s, "seconds": gmres_wall,
+                           "runs_s": gmres_runs, "k2a_main": k2a_main,
+                           "residual_norms": rn.tolist(),
+                           "plain_rel_diff": float(plain_gap),
+                           "scipy_err": float(scipy_err),
+                           "scipy_scale": float(scipy_scale),
+                           "profile": gmres_profile},
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

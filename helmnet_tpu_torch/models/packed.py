@@ -33,7 +33,10 @@ import torch
 
 from ..core.config import Config, ModelConfig
 from ..core.device import resolve_device
+from ..ops.packed_double_conv import MAX_PARTS as K3_MAX_PARTS
+from ..ops.packed_double_conv import MAX_WIDTH as K3_MAX_WIDTH
 from ..ops.packed_double_conv import packed_double_conv, prepare
+from ..ops.packed_double_conv import supported as k3_supported
 from ..ops.spectral import SpectralPML, resolve_mode
 from ..solvers.iterative import RESIDUAL_SCALE, _on, get_initials
 from .blocks import conv2d, conv_transpose2d, conv_transpose2d_subpixel, double_conv
@@ -127,23 +130,64 @@ def _k3_params(p, w1s, post=None) -> dict:
     return fp
 
 
+def _k3_sites(params, cfg: ModelConfig, inc_splits):
+    """(name, DoubleConv params, per-group input widths, head or None) of
+    every DoubleConv that `apply_packed` sends to K3, in call order."""
+    f, s = cfg.features, cfg.state_channels
+    sites = [("inc", params["inc"], tuple(inc_splits), None)]
+    for d, blk in enumerate(params["enc"]):
+        splits = (f, s) if d < cfg.state_depth else (f,)
+        sites.append((f"enc[{d}].conv_signal", blk["conv_signal"], splits, None))
+        if d < cfg.state_depth:
+            sites.append((f"enc[{d}].conv_state", blk["conv_state"], splits, None))
+    for i, p in enumerate(params["decode"]):
+        sites.append((f"decode[{i}]", p, (f,) if i == cfg.depth else (f, f),
+                      params["outc"] if i == 0 else None))
+    return sites
+
+
+def check_k3_shapes(params, cfg: ModelConfig, g: int, inc_splits=None,
+                    packed: bool = True) -> None:
+    """Raise ValueError, naming the DoubleConv and its widths, if K3 does
+    not take one of them at group size `g`. `params` are packed (widths
+    already g-fold) or, with `packed=False`, the unpacked ones. A refusal
+    is deliberate: the port does not fall back to cuDNN in 'pallas' mode
+    (the JAX package falls back to XLA convs there); K3's mid, out and head
+    widths stop at 128, so the default model runs at g <= 16."""
+    inc_splits = (cfg.in_channels,) if inc_splits is None else tuple(inc_splits)
+    scale = 1 if packed else g
+    for name, p, splits, post in _k3_sites(params, cfg, inc_splits):
+        cins = [g * c for c in splits]
+        cm = scale * int(p["c1"]["w"].shape[0])
+        co = scale * int(p["c2"]["w"].shape[0])
+        ce = co if post is None else scale * int(post["w"].shape[0])
+        if not k3_supported(1, 1, cins, cm, co, ce):
+            raise ValueError(
+                f"K3 does not take {name} at g={g}: parts {cins} -> {cm} -> "
+                f"{co} -> {ce} channels (at most {K3_MAX_PARTS} parts and "
+                f"{K3_MAX_WIDTH} mid, out and head channels); use a smaller g "
+                f"or double_conv_mode='xla'")
+
+
 def prepare_k3(packed_params, cfg: ModelConfig, g: int, inc_splits=None):
     """The packed params with each DoubleConv's K3 weights converted once
     (`ops.packed_double_conv.prepare`) and kept under `K3_KEY`.
 
     `inc_splits` are the per-group widths of the input parts of `inc`
     (default one part of `cfg.in_channels`; `rollout_packed` feeds three
-    of 2). `apply_packed` takes a prepared entry as it is (the K3 wrapper
-    raises if its input parts differ) and converts on the fly where there
-    is none."""
-    f, s = cfg.features, cfg.state_channels
+    of 2). Every shape is checked (`check_k3_shapes`) before any weight is
+    converted. `apply_packed` takes a prepared entry as it is (the K3
+    wrapper raises if its input parts differ) and converts on the fly
+    where there is none."""
     inc_splits = (cfg.in_channels,) if inc_splits is None else tuple(inc_splits)
+    check_k3_shapes(packed_params, cfg, g, inc_splits)
 
     def prep(p, splits, post=None):
         w1s = (_split_packed_rows(p["c1"]["w"], splits, g) if len(splits) > 1
                else (p["c1"]["w"],))
         return dict(p, **{K3_KEY: prepare(_k3_params(p, w1s, post))})
 
+    f, s = cfg.features, cfg.state_channels
     out = dict(packed_params, inc=prep(packed_params["inc"], inc_splits))
     out["enc"] = []
     for d, blk in enumerate(packed_params["enc"]):
@@ -302,6 +346,8 @@ def rollout_packed(
     if mode != "matmul":
         raise ValueError("rollout_packed supports the matmul operator only")
     mcfg = cfg.model
+    if uses_kernel(mcfg):  # refuse K3's shapes before anything is converted
+        check_k3_shapes(params, mcfg, g, inc_splits=(2, 2, 2), packed=False)
     op = op.to(dev)
     source = _on(source, dev)
     packed = pack_params(params_to(params, dev), g)

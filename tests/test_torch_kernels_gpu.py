@@ -242,3 +242,123 @@ def test_k3_wrapper_rejects(cuda):
     with pytest.raises(ValueError, match="on cpu"):
         two = _params(rng, 40, 32, 32, cuda)
         packed_double_conv(two, (x, x[..., :8].cpu().contiguous()))
+
+
+# ---------------------------------------------------------------------------
+# K2a-c: the fused stencil residual (ops/stencil_residual.py)
+# ---------------------------------------------------------------------------
+
+# atol 1e-5 for the CUDA-core kernel (tests/test_pallas_stencil.py:35,90),
+# 2e-4 for the tensor-core one (:116)
+K2_ATOL = {"planes": 1e-5, "tiled": 1e-5, "mxu": 2e-4}
+
+
+def _k2_fields(rng, b, h, w, device):
+    t = lambda a: torch.tensor(a.astype(np.float32), device=device)
+    u = t(rng.standard_normal((b, h, w, 2)))
+    s = t(rng.standard_normal((b, h, w, 2)))
+    k_sq = t(rng.uniform(0.5, 1.2, (b, h, w)))
+    return u, s, k_sq
+
+
+def _k2_entry(kind, tile_h):
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+
+    if kind == "planes":
+        return sr.residual_planes, sr.residual_planes_plain
+    entry = sr.residual_planes_tiled if kind == "tiled" else sr.residual_planes_mxu
+    plain = (sr.residual_planes_plain if kind == "tiled"
+             else sr.residual_planes_mxu_plain)
+    return (lambda *a, **k: entry(*a, tile_h=tile_h, **k)), plain
+
+
+@pytest.mark.parametrize("kind", ["planes", "tiled", "mxu"])
+@pytest.mark.parametrize(
+    "order,b,h,w,pairs,with_s",
+    [
+        (4, 2, 64, 128, False, True),    # aligned, split planes
+        (2, 2, 64, 128, False, True),    # order 2
+        (4, 3, 96, 72, True, True),      # ragged columns, stride-2 halves
+        (4, 1, 40, 40, False, False),    # s = None
+        (2, 2, 32, 33, True, False),     # ragged, pairs, no s
+    ],
+)
+def test_k2_matches_plain(cuda, kind, order, b, h, w, pairs, with_s):
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+
+    rng = np.random.default_rng(order * 100 + h + w)
+    op = make_stencil_operator(h, w, 8, 2.0, 1.0, order=order, device=cuda)
+    u, s, k_sq = _k2_fields(rng, b, h, w, cuda)
+    if pairs:
+        ur, ui, sr_, si = u[..., 0], u[..., 1], s[..., 0], s[..., 1]
+    else:
+        ur, ui = u[..., 0].contiguous(), u[..., 1].contiguous()
+        sr_, si = s[..., 0].contiguous(), s[..., 1].contiguous()
+    if not with_s:
+        sr_ = si = None
+    entry, plain = _k2_entry(kind, h // 2)
+    got = entry(op, ur, ui, k_sq, sr_, si)
+    ref = plain(op, ur, ui, k_sq, sr_, si)
+    torch.cuda.synchronize()
+    for g, r in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   atol=K2_ATOL[kind])
+
+
+def test_k2_pair_wrapper_and_complex_view(cuda):
+    """The channel-pair wrapper and a complex64 tensor seen through
+    view_as_real give the split-plane result, and s=None equals s=0."""
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+
+    rng = np.random.default_rng(7)
+    op = make_stencil_operator(48, 80, 8, 2.0, 1.0, device=cuda)
+    u, s, k_sq = _k2_fields(rng, 2, 48, 80, cuda)
+    ref = torch.stack(sr.residual_planes_plain(
+        op, u[..., 0], u[..., 1], k_sq, s[..., 0], s[..., 1]), -1)
+    got = sr.helmholtz_residual_kernel(op, u, k_sq, s)
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=1e-5)
+    uc = torch.view_as_complex(u.contiguous())
+    no_s = sr.helmholtz_residual_stencil_auto(op, torch.view_as_real(uc), k_sq)
+    zero_s = sr.helmholtz_residual_kernel(op, u, k_sq, torch.zeros_like(s))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(no_s, zero_s, rtol=0, atol=0)
+
+
+def test_k2_tile_rules_and_counts(cuda):
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+
+    rng = np.random.default_rng(8)
+    op = make_stencil_operator(128, 64, 8, 2.0, 1.0, device=cuda)
+    u, s, k_sq = _k2_fields(rng, 1, 128, 64, cuda)
+    planes = (u[..., 0], u[..., 1], k_sq, s[..., 0], s[..., 1])
+    sr.reset_launches()
+    sr.residual_planes_tiled(op, *planes, tile_h=64)
+    sr.residual_planes_tiled(op, *planes, tile_h=128)  # one tile: K2a
+    sr.residual_planes_mxu(op, *planes, tile_h=32)
+    sr.residual_planes_plain(op, *planes)
+    counts = (sr.residual_planes.launches, sr.residual_planes_tiled.launches,
+              sr.residual_planes_mxu.launches)
+    assert counts == (1, 1, 1)
+    with pytest.raises(ValueError, match="divisible"):
+        sr.residual_planes_tiled(op, *planes, tile_h=40)
+
+
+def test_k2_wrapper_rejects(cuda):
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+
+    rng = np.random.default_rng(9)
+    op = make_stencil_operator(32, 32, 4, 2.0, 1.0, device=cuda)
+    u, s, k_sq = _k2_fields(rng, 1, 32, 32, cuda)
+    ur, ui = u[..., 0].contiguous(), u[..., 1].contiguous()
+    with pytest.raises(ValueError, match="dtype"):
+        sr.residual_planes(op, ur.double(), ui.double(), k_sq)
+    with pytest.raises(ValueError, match="strides"):
+        sr.residual_planes(op, ur.transpose(1, 2), ui.transpose(1, 2), k_sq)
+    with pytest.raises(ValueError, match="on cpu"):
+        sr.residual_planes(op, ur, ui.cpu(), k_sq)
+    with pytest.raises(ValueError, match="operator"):
+        sr.residual_planes(op.to("cpu"), ur, ui, k_sq)

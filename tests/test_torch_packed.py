@@ -14,6 +14,8 @@ trained_models/round1_best_epoch890.npz at 32^2:
   largest value.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -183,6 +185,28 @@ def test_rollout_packed_raises():
     with pytest.raises(ValueError, match="collects"):
         tp.rollout_packed(ts.params, ts.op, src[:2], _sos(2), cfg=ts.cfg, g=2,
                           num_iterations=1, collect=("wavefields",), device="cpu")
+
+
+def test_rollout_packed_refuses_k3_widths_before_converting(monkeypatch):
+    """At g=32 the default model's mid and out widths are 256, above K3's
+    128: 'pallas' mode raises ValueError naming the shape before any K3
+    weight is converted (no fallback to cuDNN), and 'xla' mode runs."""
+    _, ts = _solvers(double_conv_mode="pallas", precision="default")
+    converted = []
+    monkeypatch.setattr(tp, "prepare", lambda p: converted.append(p))
+    src = ts.source.expand(32, -1, -1, -1)
+    with pytest.raises(ValueError, match=r"K3 does not take inc at g=32.*128"):
+        tp.rollout_packed(ts.params, ts.op, src, _sos(32), cfg=ts.cfg, g=32,
+                          num_iterations=1, device="cpu")
+    packed = tp.pack_params(ts.params, 32)
+    with pytest.raises(ValueError, match="K3 does not take"):
+        tp.prepare_k3(packed, ts.cfg.model, 32, inc_splits=(2, 2, 2))
+    assert converted == []
+    xla = ts.cfg.replace(model=dataclasses.replace(ts.cfg.model,
+                                                   double_conv_mode="xla"))
+    out = tp.rollout_packed(ts.params, ts.op, src, _sos(32), cfg=xla, g=32,
+                            num_iterations=1, device="cpu")
+    assert bool(torch.isfinite(out["rmse"]).all())
 
 
 def test_pallas_step_calls_k3_fourteen_times(monkeypatch):

@@ -11,27 +11,34 @@ at bench.py's 512^2 x 8, and batched GMRES on the stencil operator at
 256^2 x 16, and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
-2. build: the `nvcc` build of the CUDA kernels, with ptxas's resource lines;
+2. build: the `nvcc` build of the CUDA kernels and, for every instance
+   of K1 and K3, its registers, shared memory and spills from ptxas's
+   resource lines (the whole log goes to --out);
 3. kernel against plain version: each of the 14 DoubleConv calls of one
-   solver step, at their real shapes, against `double_conv_plain`
-   (atol 2e-2 * max|ref|, the JAX package's bound in
-   tests/test_pallas_pixconv.py);
+   solver step, at their real shapes, with the weights prepared once
+   (`ops/double_conv.prepare`), against `double_conv_plain` (atol
+   2e-2 * max|ref|, the JAX package's bound in
+   tests/test_pallas_pixconv.py), and bit-equal to the same call with the
+   weights converted in the call; each with the output tile `tile_for`
+   chose;
 4. main path: trained weights (trained_models/round1_best_epoch890.npz)
    and the first 32 maps of datasets/splitted_96/testset.npz, 500
    iterations in 'pallas' mode. Exactly 14 x 500 kernel launches, finite
    and falling rmse, and agreement with the same solve in 'xla' mode
    (cuDNN, f32) and with the port's CPU path on a small input;
 5. times: each kernel shape beside its plain version, the cuDNN
-   DoubleConv and its bound (device time from CUDA events around a CUDA
-   graph replay, after a warm-up), and the rollout's gridpoints per
+   DoubleConv and its bound, its share of the bound and its time at the
+   output tile `tile_for` did not choose (device time from CUDA events
+   around a CUDA graph replay, after a warm-up), and the rollout's gridpoints per
    second in both modes (host clock around synchronised runs), and where
    a step's time goes in both modes: wall and device time per step, the
    device's busy share and the busiest kernels (torch.profiler over 50
    steps);
 6. K3 against its plain version: the 14 DoubleConv calls of one packed
    step at 256^2, g = 16 (the trained weights packed by `pack_params`,
-   seeded random inputs), within atol 2e-2 * max|ref|, each beside its
-   plain version, the cuDNN f32 DoubleConv and its bound;
+   seeded random inputs), within atol 2e-2 * max|ref|, each with its tile,
+   beside its plain version, the cuDNN f32 DoubleConv and its bound, with
+   its TFLOP/s, share of the bound and time at the other tile;
 7. the packed path: `rollout_packed` on the 16 maps of
    datasets/eval256/maps.npz, g = 16, 50 iterations (bench.py:234) in
    'pallas' mode. Exactly 14 x 50 K3 launches and no K1 launch, finite
@@ -198,6 +205,35 @@ def profile_steps(run, steps: int) -> dict:
     }
 
 
+def ptxas_table(log: str) -> list[dict]:
+    """One row per instance of K1 and K3 from nvcc's -Xptxas -v lines:
+    its template arguments, registers, static shared memory and spills."""
+    import re
+
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '\S*?(packed_double_conv|double_conv)"
+                      r"_kernelI((?:Li\d+E)+)E", line)
+        if m:
+            cur = {"kernel": "K3" if m.group(1).startswith("packed") else "K1",
+                   "args": [int(a) for a in re.findall(r"Li(\d+)E", m.group(2))],
+                   "spill_stores": 0, "spill_loads": 0, "smem": 0}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(m.group(1)) if m else 0
+            rows.append(cur)
+            cur = None
+    return rows
+
+
 def step_calls(params, model, n: int):
     """The 14 DoubleConv calls of one solver step: (name, params, grid,
     input part channels)."""
@@ -321,8 +357,12 @@ def main() -> int:
     from helmnet_tpu_torch.models.blocks import conv2d, double_conv
     from helmnet_tpu_torch.models.hybridnet import params_to
     from helmnet_tpu_torch.models.packed import pack_params, prepare_k3, rollout_packed
-    from helmnet_tpu_torch.ops.double_conv import double_conv_plain, fused_double_conv
+    from helmnet_tpu_torch.ops.double_conv import TILES as K1_TILES
+    from helmnet_tpu_torch.ops.double_conv import (double_conv_plain, fused_double_conv,
+                                                   prepare, tile_for)
     from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
+    from helmnet_tpu_torch.ops.packed_double_conv import TILES as K3_TILES
+    from helmnet_tpu_torch.ops.packed_double_conv import tile_for as k3_tile_for
     from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
     from helmnet_tpu_torch.weights import load_params_npz
 
@@ -341,10 +381,22 @@ def main() -> int:
 
     # -- 2. build ----------------------------------------------------------
     built = _build.build(force=True)
-    log(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s")
-    for line in built.log.splitlines():  # registers, smem, spills
-        print(f"    {line.strip()}", flush=True)
-    _build.load_library()
+    log(f"phase 2 build: {built.path.name} in {built.seconds:.1f} s (nvcc's "
+        f"output: `build_log` of --out)")
+    lib = _build.load_library()
+    # K1: <TH, TW, warps, CS, CMP, COP>; K3: <TH, TW, CMP, COP, stages>,
+    # whose shared memory is dynamic (hn_packed_double_conv_smem)
+    resources = ptxas_table(built.log)
+    for r in resources:
+        if r["kernel"] == "K3":
+            th, tw, cmp_, cop_ = r["args"][:4]
+            r["smem"] = lib.hn_packed_double_conv_smem(K3_TILES.index((th, tw)),
+                                                       cmp_, cop_)
+        log(f"phase 2 {r['kernel']} <{', '.join(map(str, r['args']))}>: "
+            f"{r['registers']} registers, {r['smem']} B shared memory, spills "
+            f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded")
+    if {r["kernel"] for r in resources} != {"K1", "K3"}:
+        fail("the build log names no instance of K1 or of K3")
 
     cfg = Config.from_json_file("experiments/base.json")
     model = dataclasses.replace(cfg.model, precision="default",
@@ -359,19 +411,25 @@ def main() -> int:
     for name, p, n, cins in step_calls(params, model, GRID):
         parts = tuple(torch.randn((BATCH, n, n, c), generator=gen, device=dev)
                       for c in cins)
+        pw = prepare(p)  # as the rollout prepares them, once
         ref = double_conv_plain(p, parts)
-        got = fused_double_conv(p, parts)
+        got = fused_double_conv(pw, parts)
+        converted = fused_double_conv(p, parts)  # weights converted in the call
         torch.cuda.synchronize()
         err = (got - ref).abs().max().item()
         scale = ref.abs().max().item()
         ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+        tile = tile_for(BATCH, n, n)
         log(f"phase 3 {name:20s} {'+'.join(map(str, cins)):>4s} -> "
-            f"{p['c1']['w'].shape[0]} -> {got.shape[-1]} @{n}^2: max|err| "
-            f"{err:.3e} (atol {KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
+            f"{p['c1']['w'].shape[0]} -> {got.shape[-1]} @{n}^2, tile "
+            f"{tile[0]}x{tile[1]}: max|err| {err:.3e} (atol "
+            f"{KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"kernel disagrees with its plain version at {name}")
-        cases.append(dict(name=name, grid=n, cins=list(cins), params=p,
-                          parts=parts, out=got, max_abs_err=err))
+        if not torch.equal(got, converted):
+            fail(f"prepared and converted weights differ at {name}")
+        cases.append(dict(name=name, grid=n, cins=list(cins), params=p, pw=pw,
+                          parts=parts, out=got, max_abs_err=err, tile=list(tile)))
 
     # -- 4. main path --------------------------------------------------------
     sos = np.load("datasets/splitted_96/testset.npz")["maps"][:BATCH]
@@ -424,14 +482,16 @@ def main() -> int:
     # -- 5. times --------------------------------------------------------------
     rows = []
     for c in cases:
-        p, parts = c["params"], c["parts"]
+        p, pw, parts = c["params"], c["pw"], c["parts"]
 
         def library(p=p, parts=parts):
             x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
             y = double_conv(p, x, model.activation_function, "highest")
             return conv2d(p["post"], y) if "post" in p else y
 
-        kernel_ms = cuda_ms(lambda: fused_double_conv(p, parts))
+        kernel_ms = cuda_ms(lambda: fused_double_conv(pw, parts))
+        alt = K1_TILES[1 - K1_TILES.index(tuple(c["tile"]))]  # the tile not chosen
+        alt_ms = cuda_ms(lambda: fused_double_conv(pw, parts, tile=alt))
         plain_ms = cuda_ms(lambda: double_conv_plain(p, parts))
         library_ms = cuda_ms(library)
         flops, ops_ms, bytes_ms, cuda_core_ms = bound(p, parts, c["out"])
@@ -442,12 +502,16 @@ def main() -> int:
                    ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
                    bound_ms=bound_ms, bound_by=bound_by, ops_ms=ops_ms,
                    bytes_ms=bytes_ms, cuda_core_ms=cuda_core_ms,
-                   max_abs_err=c["max_abs_err"], gflops=flops / 1e9)
+                   max_abs_err=c["max_abs_err"], gflops=flops / 1e9,
+                   tile=c["tile"], bound_share=bound_ms / kernel_ms,
+                   tflops=flops / kernel_ms / 1e9, alt_tile=list(alt), alt_ms=alt_ms)
         rows.append(row)
-        log(f"phase 5 {c['name']:20s} kernel {kernel_ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core ceiling "
-            f"{cuda_core_ms:.4f} ms")
+        log(f"phase 5 {c['name']:20s} tile {c['tile'][0]}x{c['tile'][1]}: kernel "
+            f"{kernel_ms:.4f} ms ({row['bound_share']:.3f} of its bound, "
+            f"{row['tflops']:.1f} TFLOP/s), plain {plain_ms:.4f} ms, cuDNN "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), f32 "
+            f"CUDA-core ceiling {cuda_core_ms:.4f} ms; at tile {alt[0]}x{alt[1]} "
+            f"{alt_ms:.4f} ms")
     rollouts = {}
     for mode, s in (("pallas", solver), ("xla", cudnn_solver),
                     ("xla", cudnn_solver), ("pallas", solver)):
@@ -501,6 +565,9 @@ def main() -> int:
             return conv2d(p["post"], y) if "post" in p else y
 
         kernel_ms = cuda_ms(lambda: packed_double_conv(pw, parts))
+        tile = k3_tile_for(1, n, n)
+        alt = K3_TILES[1 - K3_TILES.index(tile)]  # the tile not chosen
+        alt_ms = cuda_ms(lambda: packed_double_conv(pw, parts, tile=alt))
         plain_ms = cuda_ms(lambda: double_conv_plain(fp, parts))
         library_ms = cuda_ms(library)
         flops, ops_ms, bytes_ms, cuda_core_ms = packed_bound(pw, parts, got)
@@ -511,10 +578,13 @@ def main() -> int:
             ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
             bound_ms=bound_ms, bound_by=bound_by, ops_ms=ops_ms, bytes_ms=bytes_ms,
             cuda_core_ms=cuda_core_ms, max_abs_err=err, gflops=flops / 1e9,
-            tflops=flops / kernel_ms / 1e9))
-        log(f"phase 6 {name:20s} K3 {kernel_ms:.4f} ms ({flops / kernel_ms / 1e9:.1f} "
-            f"TFLOP/s), plain {plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core {cuda_core_ms:.4f} ms")
+            tflops=flops / kernel_ms / 1e9, tile=list(tile),
+            bound_share=bound_ms / kernel_ms, alt_tile=list(alt), alt_ms=alt_ms))
+        log(f"phase 6 {name:20s} tile {tile[0]}x{tile[1]}: K3 {kernel_ms:.4f} ms "
+            f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {bound_ms / kernel_ms:.3f} of "
+            f"its bound), plain {plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core {cuda_core_ms:.4f} ms; "
+            f"at tile {alt[0]}x{alt[1]} {alt_ms:.4f} ms")
         del parts, ref, got
 
     # -- 7. the packed path ----------------------------------------------------
@@ -919,6 +989,7 @@ def main() -> int:
         "bound_ms": total("bound_ms"),
         "bound_by": "operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
         "library_ms": total("library_ms"),
+        "tiles": {r["name"]: "x".join(map(str, r["tile"])) for r in rows},
     }, {
         "name": "packed_double_conv",
         "route": "cuda",
@@ -933,6 +1004,7 @@ def main() -> int:
         "bound_by": ("operations" if k3_total("ops_ms") >= k3_total("bytes_ms")
                      else "bytes"),
         "library_ms": k3_total("library_ms"),
+        "tiles": {r["name"]: "x".join(map(str, r["tile"])) for r in k3_rows},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -958,7 +1030,9 @@ def main() -> int:
     )]}
     if args.out:
         with open(args.out, "w") as fh:
-            json.dump({"device": kind, "nvidia_smi": smi, "calls": rows,
+            json.dump({"device": kind, "nvidia_smi": smi, "ptxas": resources,
+                       "build_log": built.log,
+                       "calls": rows,
                        "rollout_seconds": rollouts, "gridpoints_per_s": gps,
                        "first_rollout_s": first_s, "build_s": built.seconds,
                        "profile": profiles, "k3_calls": k3_rows,

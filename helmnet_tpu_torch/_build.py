@@ -39,11 +39,12 @@ NVCC_FLAGS = (
 BUILD_TIMEOUT_S = 300
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# hn_double_conv(x1, c1, x2, c2, w1, b1, slope, w2, b2, w3, b3, out,
-#                B, H, W, cm, co, ce, stream)
+# hn_double_conv(x1, c1, v1, x2, c2, v2, w1, b1, slope, w2, b2, w3, b3,
+#                out, B, H, W, cs, cmp, cop, co, ce, cep, tile, stream)
 # hn_packed_double_conv(x0, c0, x1, c1, x2, c2, w1, b1, slope, w2, b2, w3,
 #                       b3, out, B, H, W, cm, co, ce, cmp, cop, cep, vec,
-#                       stream)
+#                       tile, stream)
+# hn_packed_double_conv_smem(tile, cmp, cop)
 # hn_stencil_residual(ur, ui, ubs, uxs, k2, kbs, sr, si, sbs, sxs, rr, ri,
 #                     rbs, rxs, cxr, cxi, cyr, cyi, B, H, W, radius, stream)
 # hn_stencil_residual_mma: the same, with the banded matrices btr, bti in
@@ -51,11 +52,12 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _STENCIL = [_P, _P, _L, _I, _P, _L, _P, _P, _L, _I, _P, _P, _L, _I,
             _P, _P, _P, _P, _I, _I, _I, _I, _P]
 _SIGNATURES = {
-    "hn_double_conv": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                       _I, _I, _I, _I, _I, _I, _P],
+    "hn_double_conv": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
+                       _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "hn_packed_double_conv": [_P, _I, _P, _I, _P, _I, _P, _P, _P, _P, _P,
                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _P],
+                              _I, _I, _I, _P],
+    "hn_packed_double_conv_smem": [_I, _I, _I],
     "hn_stencil_residual": _STENCIL,
     "hn_stencil_residual_mma": _STENCIL,
 }

@@ -1,35 +1,49 @@
 // Fused DoubleConv for Hopper (sm_90a): conv3x3 (pad 1) -> PReLU -> conv3x3
-// (pad 1), optionally followed by a 1x1 conv (the UNet's outc head).
+// (pad 1), optionally followed by a 1x1 conv (the UNet's outc head), for
+// at most 16 channels in, mid, out and head.
 //
 // Replaces the TPU kernel helmnet_tpu/ops/pallas_pixconv.py:251
 // (fused_double_conv_pix, body `_kernel` at :149). The TPU design packs 16
 // pixels per 128-lane row with banded block-Toeplitz weights and an edge
 // block built with pltpu.roll, all to fill the MXU's lanes; none of that
-// is carried over. Here one thread block computes one 16x16 output tile of
-// one sample:
-//   1. stage both weight sets (rounded to bf16) and the input tile with a
-//      2-pixel halo (20x20, rounded to bf16) in shared memory. The input
-//      may come in two channel parts (signal and skip or state), read
-//      through separate pointers, so no concatenated copy exists in device
-//      memory;
-//   2. conv1 + bias + PReLU on the 18x18 intermediate, kept in shared
+// is carried over. Here one thread block computes one TH x TW output tile
+// of one sample, both convolutions as implicit GEMMs on the tensor cores
+// (mma.sync m16n8k16, bf16 operands, f32 sums):
+//   1. each lane loads its B fragments (the weights, prepared once per
+//      rollout by ops/double_conv.prepare as bf16 in fragment order) into
+//      registers: coalesced 32-bit loads, no shared memory and no
+//      conversion in the block;
+//   2. the input tile with its 2-pixel halo is staged in shared memory as
+//      bf16, 8 or 16 channels a pixel (CS), from up to two parts read
+//      through separate pointers with 16-, 8- or 4-byte vector loads;
+//      zero outside the image (conv1's padding) and in the padded channels;
+//   3. conv1: M = the (TH+2) x (TW+2) intermediate pixels in m16 tiles
+//      spread over the warps, N = the mid width padded to 8 or 16, K = 9
+//      taps x CS channels in k16 steps (a trailing k8 step when 9 x CS / 8
+//      is odd). A fragments come from the staged tile with ldmatrix: each
+//      lane's row address absorbs the tap's shift and the halo;
+//   4. bias + PReLU (ReLU without a slope), rounded to bf16 into shared
 //      memory. Conv2's zero padding means the intermediate is ZERO outside
-//      the image (not conv1 evaluated in the padding ring): the ring is
-//      masked on every edge tile;
-//   3. conv2 + bias, then optionally the 1x1 head + bias, written as NHWC.
+//      the image, not conv1 evaluated in the ring: the ring is masked on
+//      every edge tile;
+//   5. conv2 the same way from the intermediate, + bias; with the head,
+//      h2 is rounded to bf16 and its accumulator fragments become the A
+//      fragments of the 1x1 product in registers. Written as NHWC f32.
 // Precision follows the TPU kernel: x, h1 and h2 (before the head) are
-// rounded to bf16 where they enter a product, weights are bf16, and
-// accumulation, bias and PReLU are f32.
+// rounded to bf16 where they enter a product, weights are bf16, and sums,
+// biases and PReLU are f32.
 //
 // What bounds it on this card: at 96^2 x B32 the decode[0] call (8+8 -> 8
 // -> 8 channels, 1x1 head to 2) moves about 21 MB and does about 1 GFLOP
-// of bf16 x bf16 products with f32 sums: 6.3 us of HBM traffic at
-// 3.35 TB/s against 1.0 us on the tensor cores at 989 TFLOP/s, so the
-// function is bound by bytes. This first version runs the FMAs on the
-// CUDA cores (67 TFLOP/s in f32, 15 us for that call) with the weights
-// broadcast from shared memory, so the design itself is bound by
-// operations; moving the taps onto the tensor cores (mma / wgmma on the
-// bf16 operands) is later work.
+// of bf16 products: 6.3 us at 3.35 TB/s against 1.0 us at 989 TFLOP/s, so
+// the function is bound by bytes, and N = 8 leaves no use for wgmma. The
+// design keeps the bytes to one read of each input and one write of the
+// output (the halo is re-read from L2), keeps the per-block set-up short
+// (no weight conversion, bf16 tiles of at most 35 KB so several blocks
+// share an SM), and picks the tile by the level's size
+// (ops/double_conv.tile_for): 16 x 16 where the grid has blocks enough to
+// fill the card, 8 x 8 at the small levels so that small grids launch
+// more, shorter blocks.
 //
 // Plain C entry point, bound from Python with ctypes (ops/double_conv.py).
 // It launches on the caller's stream, does not synchronise, allocates
@@ -39,214 +53,461 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int TILE = 16;                 // output tile edge
-constexpr int MID = TILE + 2;            // intermediate tile edge
-constexpr int IN = TILE + 4;             // input tile edge (2-pixel halo)
-constexpr int IN_PLANE = IN * IN + 1;    // odd plane strides spread banks
-constexpr int MID_PLANE = MID * MID + 1;
-constexpr int THREADS = TILE * TILE;
+using bf16 = __nv_bfloat16;
+
 constexpr int MAX_C = 16;
 
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16(v));
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// CMP, COP: mid and out channel counts padded to 4, 8 or 16 (zero weights
-// in the padding), so accumulators live in registers and weight rows load
-// as float4 broadcasts.
-template <int CMP, int COP>
-__global__ void __launch_bounds__(THREADS)
-double_conv_kernel(const float* __restrict__ x1, int c1,
-                   const float* __restrict__ x2, int c2,
-                   const float* __restrict__ w1, const float* __restrict__ b1,
-                   const float* __restrict__ slope,
-                   const float* __restrict__ w2, const float* __restrict__ b2,
-                   const float* __restrict__ w3, const float* __restrict__ b3,
-                   float* __restrict__ out, int H, int W, int cm, int co,
-                   int ce) {
-  extern __shared__ __align__(16) float smem[];
-  const int cin = c1 + c2;
-  float* w1s = smem;                   // [cin * 9][CMP]
-  float* w2s = w1s + cin * 9 * CMP;    // [CMP * 9][COP]
-  float* w3s = w2s + CMP * 9 * COP;    // [MAX_C][COP]
-  float* b1s = w3s + MAX_C * COP;      // [CMP]
-  float* b2s = b1s + CMP;              // [COP]
-  float* xs = b2s + COP;               // [cin][IN_PLANE]
-  float* hs = xs + cin * IN_PLANE;     // [CMP][MID_PLANE]
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int tid = threadIdx.x;
-  const int n = blockIdx.z;
-  const int y0 = blockIdx.y * TILE;
-  const int x0 = blockIdx.x * TILE;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
 
-  // weights, OIHW in device memory -> [tap-row][out] in shared memory
-  for (int i = tid; i < cin * 9 * CMP; i += THREADS) {
-    const int m = i % CMP, r = i / CMP;  // r = ci * 9 + tap
-    w1s[i] = m < cm ? bf16r(w1[(m * cin + r / 9) * 9 + r % 9]) : 0.f;
-  }
-  for (int i = tid; i < CMP * 9 * COP; i += THREADS) {
-    const int o = i % COP, r = i / COP;  // r = m * 9 + tap
-    const int m = r / 9;
-    w2s[i] = (o < co && m < cm) ? bf16r(w2[(o * cm + m) * 9 + r % 9]) : 0.f;
-  }
-  if (w3 != nullptr) {
-    for (int i = tid; i < ce * COP; i += THREADS) {
-      const int o = i % COP, e = i / COP;
-      w3s[i] = o < co ? bf16r(w3[e * co + o]) : 0.f;
+__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+// d += A(16x16, row-major) * B(16x8, column-major); bf16 in, f32 sums.
+// Fragments (PTX ISA, mma.m16n8k16), g = lane / 4, t = lane % 4:
+//   a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], a2 = A[g][2t+8..], a3 = A[g+8][2t+8..]
+//   b0 = B[2t..2t+1][g], b1 = B[2t+8..2t+9][g]
+//   d0, d1 = D[g][2t, 2t+1], d2, d3 = D[g+8][2t, 2t+1]
+__device__ __forceinline__ void mma_k16(float (&d)[4], const uint32_t (&a)[4],
+                                        uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The k8 form: a0 = A[g][2t..2t+1], a1 = A[g+8][2t..], b0 = B[2t..2t+1][g].
+__device__ __forceinline__ void mma_k8(float (&d)[4], const uint32_t (&a)[2],
+                                       uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(b0));
+}
+
+// Shared-memory pixel stride (bf16) of a tile with CH channels a pixel:
+// 16 bytes at 8 channels; 48 bytes at 16, so the 8 rows of an ldmatrix
+// phase (consecutive pixels) fall in 8 distinct 16-byte bank groups.
+template <int CH>
+struct PixStride {
+  static constexpr int value = CH == 8 ? 8 : 24;
+};
+
+// Element offset of K chunk j (8 channels of one tap) in a tile of rows
+// ROWW pixels wide: tap = j / (CH / 8), channel half = j % (CH / 8).
+template <int CH, int ROWW>
+__device__ __forceinline__ int chunk_offset(int j) {
+  constexpr int PS = PixStride<CH>::value;
+  const int tap = j / (CH / 8), half = j % (CH / 8);
+  return ((tap / 3) * ROWW + tap % 3) * PS + half * 8;
+}
+
+// acc[i][nt] += the 3x3 conv of `src` (CH channels a pixel, rows ROWW
+// pixels wide) for this warp's m16 tiles. pbase[i]: the pixel of tap
+// (0, 0) for the row this lane addresses in ldmatrix (row l % 8 + 8 *
+// ((l / 8) % 2) of tile i); tiles at i >= ntiles are skipped (warp-uniform).
+// bw[nt][j]: this lane's B fragment of K chunk j, n-tile nt.
+template <int CH, int ROWW, int NT, int MPW>
+__device__ __forceinline__ void conv3x3(float (&acc)[MPW][NT][4],
+                                        const bf16* src, const int (&pbase)[MPW],
+                                        int ntiles,
+                                        const uint32_t (&bw)[NT][9 * CH / 8]) {
+  constexpr int PS = PixStride<CH>::value;
+  constexpr int NC = 9 * CH / 8;
+  const int hi = (threadIdx.x >> 4) & 1;  // lanes 16-31: the second k8 chunk
+  uint32_t base[MPW];
+#pragma unroll
+  for (int i = 0; i < MPW; ++i) base[i] = smem_addr(src + pbase[i] * PS);
+#pragma unroll
+  for (int s = 0; s < NC / 2; ++s) {
+    const int off = hi ? chunk_offset<CH, ROWW>(2 * s + 1)
+                       : chunk_offset<CH, ROWW>(2 * s);
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+      if (i >= ntiles) break;
+      uint32_t a[4];
+      ldmatrix_x4(a, base[i] + 2 * off);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mma_k16(acc[i][nt], a, bw[nt][2 * s], bw[nt][2 * s + 1]);
     }
   }
-  if (tid < CMP) b1s[tid] = tid < cm ? b1[tid] : 0.f;
-  if (tid < COP) b2s[tid] = tid < co ? b2[tid] : 0.f;
-  const float a = slope != nullptr ? *slope : 0.f;  // no slope: ReLU
-
-  // input tile with its halo; zero outside the image (conv1's padding)
-  for (int i = tid; i < IN * IN * cin; i += THREADS) {
-    const int c = i % cin, p = i / cin;
-    const int gy = y0 - 2 + p / IN, gx = x0 - 2 + p % IN;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const size_t pix = ((size_t)n * H + gy) * W + gx;
-      v = c < c1 ? x1[pix * c1 + c] : x2[pix * c2 + (c - c1)];
+  if constexpr (NC % 2 == 1) {
+    const int off = chunk_offset<CH, ROWW>(NC - 1);
+#pragma unroll
+    for (int i = 0; i < MPW; ++i) {
+      if (i >= ntiles) break;
+      uint32_t a[2];
+      ldmatrix_x2(a, base[i] + 2 * off);
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) mma_k8(acc[i][nt], a, bw[nt][NC - 1]);
     }
-    xs[c * IN_PLANE + p] = bf16r(v);
+  }
+}
+
+// This lane's B fragments: w[nt][j][lane] (u32 = two bf16), as
+// ops/double_conv.prepare lays them out.
+template <int NT, int NC>
+__device__ __forceinline__ void load_frags(uint32_t (&bw)[NT][NC],
+                                           const uint32_t* __restrict__ w) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+    for (int j = 0; j < NC; ++j) bw[nt][j] = __ldg(w + (nt * NC + j) * 32 + lane);
+}
+
+struct Args {
+  const float* x[2];  // [B, H, W, c[i]] f32
+  int c[2];           // channels of each part (c[1] = 0: one part)
+  int v[2];           // vector width of each part's loads: 4, 2 or 1
+  const uint32_t* w1;  // prepared fragments, bf16 pairs
+  const uint32_t* w2;
+  const uint32_t* w3;  // or null
+  const float* b1;     // [CMP], zero-padded
+  const float* b2;     // [COP]
+  const float* b3;     // [16] or null
+  const float* slope;  // [1] or null (ReLU)
+  float* out;          // [B, H, W, co] or, with the head, [B, H, W, ce]
+  int H, W, co, ce, nte;
+};
+
+// One part's channels [coff, coff + c) of the pixels this thread owns,
+// rounded to bf16. V floats per load (16-, 8- or 4-byte vectors).
+template <int V, int SLOTS, int IW, int PS, int THREADS>
+__device__ __forceinline__ void stage_part(bf16* xs, const float* __restrict__ x,
+                                           int c, int coff, int n, int y0,
+                                           int x0, int H, int W, int npix) {
+  constexpr int MAXQ = MAX_C / V;
+  using Vec = typename std::conditional<
+      V == 4, float4, typename std::conditional<V == 2, float2, float>::type>::type;
+  const int nq = c / V;
+  Vec buf[SLOTS][MAXQ];
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int p = threadIdx.x + s * THREADS;
+    const int gy = y0 - 2 + p / IW, gx = x0 - 2 + p % IW;
+    const bool in = p < npix && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    const Vec* src = reinterpret_cast<const Vec*>(
+        x + (((size_t)n * H + (in ? gy : 0)) * W + (in ? gx : 0)) * c);
+#pragma unroll
+    for (int q = 0; q < MAXQ; ++q)
+      if (in && q < nq) buf[s][q] = __ldg(src + q);
+  }
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int p = threadIdx.x + s * THREADS;
+    const int gy = y0 - 2 + p / IW, gx = x0 - 2 + p % IW;
+    const bool in = p < npix && gy >= 0 && gy < H && gx >= 0 && gx < W;
+    if (!in) continue;
+    bf16* dst = xs + p * PS + coff;
+#pragma unroll
+    for (int q = 0; q < MAXQ; ++q) {
+      if (q >= nq) break;
+      if constexpr (V == 4) {
+        const float4 f = buf[s][q];
+        *reinterpret_cast<uint2*>(dst + 4 * q) =
+            make_uint2(pack_bf16(f.x, f.y), pack_bf16(f.z, f.w));
+      } else if constexpr (V == 2) {
+        const float2 f = buf[s][q];
+        *reinterpret_cast<uint32_t*>(dst + 2 * q) = pack_bf16(f.x, f.y);
+      } else {
+        dst[q] = __float2bfloat16(buf[s][q]);
+      }
+    }
+  }
+}
+
+template <int SLOTS, int IW, int PS, int THREADS>
+__device__ __forceinline__ void stage_any(bf16* xs, const float* x, int c,
+                                          int v, int coff, int n, int y0,
+                                          int x0, int H, int W, int npix) {
+  if (v == 4)
+    stage_part<4, SLOTS, IW, PS, THREADS>(xs, x, c, coff, n, y0, x0, H, W, npix);
+  else if (v == 2)
+    stage_part<2, SLOTS, IW, PS, THREADS>(xs, x, c, coff, n, y0, x0, H, W, npix);
+  else
+    stage_part<1, SLOTS, IW, PS, THREADS>(xs, x, c, coff, n, y0, x0, H, W, npix);
+}
+
+// TH x TW output tile, NW warps; CS, CMP, COP: input, mid and out channels
+// padded to 8 or 16.
+// At least 768 resident threads an SM: 85 registers a thread, so the base
+// model's instances do not spill (at 1024 threads and 64 they did).
+template <int TH, int TW, int NW, int CS, int CMP, int COP>
+__global__ void __launch_bounds__(NW * 32, 768 / (NW * 32))
+double_conv_kernel(const __grid_constant__ Args a) {
+  constexpr int THREADS = NW * 32;
+  constexpr int MH = TH + 2, MW = TW + 2, IH = TH + 4, IW = TW + 4;
+  constexpr int M1 = MH * MW, M2 = TH * TW;
+  constexpr int MT1 = (M1 + 15) / 16, MT2 = M2 / 16;
+  constexpr int MPW1 = (MT1 + NW - 1) / NW, MPW2 = (MT2 + NW - 1) / NW;
+  constexpr int PS = PixStride<CS>::value, MPS = PixStride<CMP>::value;
+  constexpr int NT1 = CMP / 8, NT2 = COP / 8;
+  constexpr int NC1 = 9 * CS / 8, NC2 = 9 * CMP / 8;
+  constexpr int SLOTS = (IH * IW + THREADS - 1) / THREADS;
+  static_assert(M2 % 16 == 0, "the output tile is whole m16 tiles");
+  __shared__ __align__(16) bf16 xs[IH * IW * PS];  // input tile
+  __shared__ __align__(16) bf16 hs[M1 * MPS];      // intermediate
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+
+  uint32_t bw1[NT1][NC1];
+  load_frags(bw1, a.w1);
+
+  // ---- stage the input tile ---------------------------------------------
+  // Each thread owns whole pixels: it zeroes their CS channels, then writes
+  // the parts' channels over them, so no barrier falls between the two.
+#pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int p = threadIdx.x + s * THREADS;
+    if (p < IH * IW) {
+#pragma unroll
+      for (int q = 0; q < CS / 8; ++q)
+        reinterpret_cast<uint4*>(xs + p * PS)[q] = make_uint4(0, 0, 0, 0);
+    }
+  }
+  stage_any<SLOTS, IW, PS, THREADS>(xs, a.x[0], a.c[0], a.v[0], 0, n, y0, x0,
+                                    a.H, a.W, IH * IW);
+  if (a.c[1] > 0)
+    stage_any<SLOTS, IW, PS, THREADS>(xs, a.x[1], a.c[1], a.v[1], a.c[0], n,
+                                      y0, x0, a.H, a.W, IH * IW);
+  __syncthreads();
+
+  // ---- conv1 over the intermediate tile ---------------------------------
+  const int lrow = (lane & 7) + ((lane >> 3) & 1) * 8;  // ldmatrix row
+  const int nt1 = warp < MT1 ? (MT1 - warp + NW - 1) / NW : 0;
+  float acc1[MPW1][NT1][4] = {};
+  {
+    int pbase[MPW1];
+#pragma unroll
+    for (int i = 0; i < MPW1; ++i) {
+      const int r = (warp + i * NW) * 16 + lrow;
+      pbase[i] = r < M1 ? (r / MW) * IW + r % MW : 0;  // rows >= M1: unused
+    }
+    conv3x3<CS, IW, NT1, MPW1>(acc1, xs, pbase, nt1, bw1);
+  }
+  uint32_t bw2[NT2][NC2];
+  load_frags(bw2, a.w2);
+
+  const float slope = a.slope != nullptr ? __ldg(a.slope) : 0.f;
+#pragma unroll
+  for (int i = 0; i < MPW1; ++i) {
+    if (i >= nt1) break;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = (warp + i * NW) * 16 + g + 8 * h;
+      if (r >= M1) continue;
+      const int gy = y0 - 1 + r / MW, gx = x0 - 1 + r % MW;
+      const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+#pragma unroll
+      for (int nt = 0; nt < NT1; ++nt) {
+        const int c = nt * 8 + 2 * t;
+        float v0 = 0.f, v1 = 0.f;
+        if (inside) {
+          v0 = acc1[i][nt][2 * h] + __ldg(a.b1 + c);
+          v1 = acc1[i][nt][2 * h + 1] + __ldg(a.b1 + c + 1);
+          v0 = fmaxf(v0, 0.f) + slope * fminf(v0, 0.f);
+          v1 = fmaxf(v1, 0.f) + slope * fminf(v1, 0.f);
+        }
+        *reinterpret_cast<uint32_t*>(hs + r * MPS + c) = pack_bf16(v0, v1);
+      }
+    }
   }
   __syncthreads();
 
-  // conv1 + bias + PReLU over the 18x18 intermediate
-  for (int q = tid; q < MID * MID; q += THREADS) {
-    const int qy = q / MID, qx = q % MID;
-    const int gy = y0 - 1 + qy, gx = x0 - 1 + qx;
-    const bool inside = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    float acc[CMP];
+  // ---- conv2 over the output tile ----------------------------------------
+  const int nt2 = warp < MT2 ? (MT2 - warp + NW - 1) / NW : 0;
+  float acc2[MPW2][NT2][4] = {};
+  {
+    int pbase[MPW2];
 #pragma unroll
-    for (int m = 0; m < CMP; ++m) acc[m] = 0.f;
-    if (inside) {
-      for (int ci = 0; ci < cin; ++ci) {
-        const float* xp = xs + ci * IN_PLANE + qy * IN + qx;
-        const float* wp = w1s + ci * 9 * CMP;
+    for (int i = 0; i < MPW2; ++i) {
+      const int r = (warp + i * NW) * 16 + lrow;
+      pbase[i] = (r / TW) * MW + r % TW;
+    }
+    conv3x3<CMP, MW, NT2, MPW2>(acc2, hs, pbase, nt2, bw2);
+  }
+
+  const size_t img = (size_t)n * a.H;
+  if (a.w3 == nullptr) {  // conv2 + bias is the output
+    const bool pairs = (a.co & 1) == 0;
 #pragma unroll
-        for (int t = 0; t < 9; ++t) {
-          const float v = xp[(t / 3) * IN + t % 3];
+    for (int i = 0; i < MPW2; ++i) {
+      if (i >= nt2) break;
 #pragma unroll
-          for (int m = 0; m < CMP; m += 4) {
-            const float4 w = *reinterpret_cast<const float4*>(wp + t * CMP + m);
-            acc[m] = fmaf(v, w.x, acc[m]);
-            acc[m + 1] = fmaf(v, w.y, acc[m + 1]);
-            acc[m + 2] = fmaf(v, w.z, acc[m + 2]);
-            acc[m + 3] = fmaf(v, w.w, acc[m + 3]);
+      for (int h = 0; h < 2; ++h) {
+        const int r = (warp + i * NW) * 16 + g + 8 * h;
+        const int gy = y0 + r / TW, gx = x0 + r % TW;
+        if (gy >= a.H || gx >= a.W) continue;
+        float* op = a.out + ((img + gy) * a.W + gx) * a.co;
+#pragma unroll
+        for (int nt = 0; nt < NT2; ++nt) {
+          const int c = nt * 8 + 2 * t;
+          const float v0 = acc2[i][nt][2 * h] + __ldg(a.b2 + c);
+          const float v1 = acc2[i][nt][2 * h + 1] + __ldg(a.b2 + c + 1);
+          if (pairs && c + 1 < a.co) {
+            *reinterpret_cast<float2*>(op + c) = make_float2(v0, v1);
+          } else {
+            if (c < a.co) op[c] = v0;
+            if (c + 1 < a.co) op[c + 1] = v1;
           }
         }
       }
     }
-#pragma unroll
-    for (int m = 0; m < CMP; ++m) {
-      const float h = acc[m] + b1s[m];
-      const float act = fmaxf(h, 0.f) + a * fminf(h, 0.f);
-      hs[m * MID_PLANE + q] = inside ? bf16r(act) : 0.f;
-    }
+    return;
   }
-  __syncthreads();
 
-  // conv2 + bias (+ 1x1 head) for this thread's output pixel
-  const int ty = tid / TILE, tx = tid % TILE;
-  const int gy = y0 + ty, gx = x0 + tx;
-  if (gy >= H || gx >= W) return;
-  float acc[COP];
+  // ---- the 1x1 head, from the accumulators in registers ------------------
+  // bf16(h2 + b2) as D fragments is the A fragment of the next product:
+  // n-tile nt of D holds k = 8 nt + 2t, +1 for rows g and g + 8.
+  uint32_t ah[MPW2][NT2][2];
 #pragma unroll
-  for (int o = 0; o < COP; ++o) acc[o] = 0.f;
+  for (int i = 0; i < MPW2; ++i)
 #pragma unroll
-  for (int m = 0; m < CMP; ++m) {
-    const float* hp = hs + m * MID_PLANE + ty * MID + tx;
-    const float* wp = w2s + m * 9 * COP;
+    for (int nt = 0; nt < NT2; ++nt) {
+      const int c = nt * 8 + 2 * t;
+      const float b0 = __ldg(a.b2 + c), b1 = __ldg(a.b2 + c + 1);
+      ah[i][nt][0] = pack_bf16(acc2[i][nt][0] + b0, acc2[i][nt][1] + b1);
+      ah[i][nt][1] = pack_bf16(acc2[i][nt][2] + b0, acc2[i][nt][3] + b1);
+    }
+  const bool pairs = (a.ce & 1) == 0;
+  for (int e = 0; e < a.nte; ++e) {
+    uint32_t bw3[NT2];
 #pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const float v = hp[(t / 3) * MID + t % 3];
+    for (int j = 0; j < NT2; ++j) bw3[j] = __ldg(a.w3 + (e * NT2 + j) * 32 + lane);
+    const int c = e * 8 + 2 * t;
+    const float b0 = __ldg(a.b3 + c), b1 = __ldg(a.b3 + c + 1);
 #pragma unroll
-      for (int o = 0; o < COP; o += 4) {
-        const float4 w = *reinterpret_cast<const float4*>(wp + t * COP + o);
-        acc[o] = fmaf(v, w.x, acc[o]);
-        acc[o + 1] = fmaf(v, w.y, acc[o + 1]);
-        acc[o + 2] = fmaf(v, w.z, acc[o + 2]);
-        acc[o + 3] = fmaf(v, w.w, acc[o + 3]);
+    for (int i = 0; i < MPW2; ++i) {
+      if (i >= nt2) break;
+      float acc3[4] = {0.f, 0.f, 0.f, 0.f};
+      if constexpr (NT2 == 2) {
+        const uint32_t af[4] = {ah[i][0][0], ah[i][0][1], ah[i][1][0], ah[i][1][1]};
+        mma_k16(acc3, af, bw3[0], bw3[NT2 - 1]);
+      } else {
+        const uint32_t af[2] = {ah[i][0][0], ah[i][0][1]};
+        mma_k8(acc3, af, bw3[0]);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (warp + i * NW) * 16 + g + 8 * h;
+        const int gy = y0 + r / TW, gx = x0 + r % TW;
+        if (gy >= a.H || gx >= a.W) continue;
+        float* op = a.out + ((img + gy) * a.W + gx) * a.ce;
+        const float v0 = acc3[2 * h] + b0, v1 = acc3[2 * h + 1] + b1;
+        if (pairs && c + 1 < a.ce) {
+          *reinterpret_cast<float2*>(op + c) = make_float2(v0, v1);
+        } else {
+          if (c < a.ce) op[c] = v0;
+          if (c + 1 < a.ce) op[c + 1] = v1;
+        }
       }
     }
   }
-  const size_t pix = ((size_t)n * H + gy) * W + gx;
-  if (w3 != nullptr) {
-    float h2[COP];
-#pragma unroll
-    for (int o = 0; o < COP; ++o) h2[o] = bf16r(acc[o] + b2s[o]);
-    for (int e = 0; e < ce; ++e) {
-      float s = 0.f;
-#pragma unroll
-      for (int o = 0; o < COP; ++o) s = fmaf(h2[o], w3s[e * COP + o], s);
-      out[pix * ce + e] = s + b3[e];
-    }
-  } else {
-#pragma unroll
-    for (int o = 0; o < COP; ++o) {
-      if (o < co) out[pix * co + o] = acc[o] + b2s[o];
-    }
-  }
 }
 
-int pad_channels(int c) { return c <= 4 ? 4 : (c <= 8 ? 8 : 16); }
-
-template <int CMP, int COP>
-cudaError_t launch(const float* x1, int c1, const float* x2, int c2,
-                   const float* w1, const float* b1, const float* slope,
-                   const float* w2, const float* b2, const float* w3,
-                   const float* b3, float* out, int B, int H, int W, int cm,
-                   int co, int ce, cudaStream_t stream) {
-  const int cin = c1 + c2;
-  const size_t floats = (size_t)cin * 9 * CMP + CMP * 9 * COP + MAX_C * COP +
-                        CMP + COP + (size_t)cin * IN_PLANE + CMP * MID_PLANE;
-  const size_t bytes = floats * sizeof(float);
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        double_conv_kernel<CMP, COP>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((W + TILE - 1) / TILE, (H + TILE - 1) / TILE, B);
-  double_conv_kernel<CMP, COP><<<grid, THREADS, bytes, stream>>>(
-      x1, c1, x2, c2, w1, b1, slope, w2, b2, w3, b3, out, H, W, cm, co, ce);
+template <int TH, int TW, int NW, int CS, int CMP, int COP>
+cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
+  const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, B);
+  double_conv_kernel<TH, TW, NW, CS, CMP, COP><<<grid, NW * 32, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
+template <int TH, int TW, int NW>
+cudaError_t dispatch(const Args& a, int B, int cs, int cmp, int cop,
+                     cudaStream_t s) {
+#define HN_CASE(C, M, O)                                  \
+  if (cs == C && cmp == M && cop == O)                    \
+    return launch<TH, TW, NW, C, M, O>(a, B, s);
+  HN_CASE(8, 8, 8) HN_CASE(8, 8, 16) HN_CASE(8, 16, 8) HN_CASE(8, 16, 16)
+  HN_CASE(16, 8, 8) HN_CASE(16, 8, 16) HN_CASE(16, 16, 8) HN_CASE(16, 16, 16)
+#undef HN_CASE
+  return cudaErrorInvalidValue;
+}
+
+bool valid_pad(int p) { return p == 8 || p == 16; }
+
 }  // namespace
 
-// x1: [B, H, W, c1] and x2: [B, H, W, c2] (x2 may be null with c2 = 0);
-// w1: [cm, c1 + c2, 3, 3], b1: [cm]; slope: [1] or null (ReLU);
-// w2: [co, cm, 3, 3], b2: [co]; w3: [ce, co] and b3: [ce], or both null;
-// out: [B, H, W, ce] (ce = co without the head). All f32, contiguous.
-extern "C" int hn_double_conv(const float* x1, int c1, const float* x2, int c2,
-                              const float* w1, const float* b1,
-                              const float* slope, const float* w2,
-                              const float* b2, const float* w3,
-                              const float* b3, float* out, int B, int H, int W,
-                              int cm, int co, int ce, void* stream) {
+// x1: [B, H, W, c1] and x2: [B, H, W, c2] f32 (x2 may be null with c2 = 0);
+// v1, v2: their load vector widths (4: c % 4 == 0, channel offset % 4 == 0
+// and the pointer 16-byte aligned; 2: the same for 2 and 8 bytes; else 1);
+// w1, w2, w3: bf16 fragments from ops/double_conv.prepare, as pairs
+// ([cmp/8][9*cs/8][32], [cop/8][9*cmp/8][32], [cep/8][cop/8][32]);
+// b1 [cmp], b2 [cop], b3 [cep] f32 zero-padded; slope [1] or null (ReLU);
+// w3 and b3 null without the head (then ce = co, cep = 0);
+// out: [B, H, W, ce] f32. cs, cmp, cop: input, mid and out widths padded to
+// 8 or 16; cep: the head's width padded to 8 or 16. tile: 0 for 16 x 16
+// output tiles, 1 for 8 x 8 (ops/double_conv.tile_for).
+extern "C" int hn_double_conv(const float* x1, int c1, int v1, const float* x2,
+                              int c2, int v2, const void* w1, const float* b1,
+                              const float* slope, const void* w2,
+                              const float* b2, const void* w3, const float* b3,
+                              float* out, int B, int H, int W, int cs, int cmp,
+                              int cop, int co, int ce, int cep, int tile,
+                              void* stream) {
+  const int tile_h = tile == 0 ? 16 : 8;
   if (x1 == nullptr || c1 <= 0 || c2 < 0 || (c2 > 0 && x2 == nullptr) ||
-      c1 + c2 > MAX_C || cm <= 0 || cm > MAX_C || co <= 0 || co > MAX_C ||
-      B <= 0 || B > 65535 || H <= 0 || W <= 0 || (H + TILE - 1) / TILE > 65535) {
+      c1 + c2 > cs || !valid_pad(cs) || !valid_pad(cmp) || !valid_pad(cop) ||
+      co <= 0 || co > cop || w1 == nullptr || w2 == nullptr || b1 == nullptr ||
+      b2 == nullptr || out == nullptr || (tile != 0 && tile != 1) || B <= 0 ||
+      B > 65535 || H <= 0 || W <= 0 || (H + tile_h - 1) / tile_h > 65535 ||
+      (v1 != 1 && v1 != 2 && v1 != 4) || (v2 != 1 && v2 != 2 && v2 != 4) ||
+      c1 % v1 != 0 || (c2 > 0 && (c2 % v2 != 0 || c1 % v2 != 0))) {
     return (int)cudaErrorInvalidValue;
   }
   if (w3 == nullptr) {
-    ce = co;
-  } else if (ce <= 0 || ce > MAX_C || b3 == nullptr) {
+    if (b3 != nullptr || cep != 0 || ce != co) return (int)cudaErrorInvalidValue;
+  } else if (b3 == nullptr || !valid_pad(cep) || ce <= 0 || ce > cep) {
     return (int)cudaErrorInvalidValue;
   }
+  Args a;
+  a.x[0] = x1;
+  a.x[1] = x2;
+  a.c[0] = c1;
+  a.c[1] = c2;
+  a.v[0] = v1;
+  a.v[1] = v2;
+  a.w1 = static_cast<const uint32_t*>(w1);
+  a.w2 = static_cast<const uint32_t*>(w2);
+  a.w3 = static_cast<const uint32_t*>(w3);
+  a.b1 = b1;
+  a.b2 = b2;
+  a.b3 = b3;
+  a.slope = slope;
+  a.out = out;
+  a.H = H;
+  a.W = W;
+  a.co = co;
+  a.ce = ce;
+  a.nte = cep / 8;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define HN_CASE(M, O)                                                        \
-  if (pad_channels(cm) == M && pad_channels(co) == O)                        \
-    return (int)launch<M, O>(x1, c1, x2, c2, w1, b1, slope, w2, b2, w3, b3, \
-                             out, B, H, W, cm, co, ce, s);
-  HN_CASE(4, 4) HN_CASE(4, 8) HN_CASE(4, 16)
-  HN_CASE(8, 4) HN_CASE(8, 8) HN_CASE(8, 16)
-  HN_CASE(16, 4) HN_CASE(16, 8) HN_CASE(16, 16)
-#undef HN_CASE
-  return (int)cudaErrorInvalidValue;
+  if (tile == 0) return (int)dispatch<16, 16, 8>(a, B, cs, cmp, cop, s);
+  return (int)dispatch<8, 8, 4>(a, B, cs, cmp, cop, s);
 }

@@ -8,27 +8,39 @@
 // (fused_double_conv, body `_kernel` at :89, taps `_conv_taps` at :60). The
 // TPU design flattens the plane to [H*W, C] rows, pads channels to 128
 // lanes, rolls rows for each tap and tiles the plane to a VMEM budget; none
-// of that is carried over. Here each block computes one 8x16 output tile of
-// one sample as implicit GEMMs on the tensor cores (mma.sync m16n8k16,
-// bf16 operands, f32 sums): M = pixels, N = output channels, K = 9 taps x
-// input channels.
-//   1. conv1 over the 10x18 intermediate tile (the output tile and its
-//      1-pixel ring). The input channels are streamed in chunks of 16: each
-//      chunk stages its 12x20 input tile (2-pixel halo, rounded to bf16)
-//      and its [cmid][9][16] weight slice in shared memory, then runs one
-//      k16 step per tap. Up to three input parts (wavefield, residual and
-//      sigma, or signal and state or skip) are read through separate
-//      pointers in part-major channel order, so no concatenated copy is
-//      written. The c1 weights (up to 576 KB in bf16 at g = 16) never fit
-//      shared memory whole; one chunk is 39 KB.
-//   2. bias + PReLU (ReLU without a slope), rounded to bf16 once and kept
-//      in shared memory for all mid channels (49 KB at 128 channels).
-//      Conv2's zero padding means the intermediate is ZERO outside the
-//      image, not conv1 evaluated in the ring: the ring is masked on every
-//      edge tile.
-//   3. conv2 from that intermediate, its weights streamed in chunks of 16
-//      mid channels the same way, + bias, written as NHWC f32; or, with the
-//      head, rounded to bf16 and taken through the 1x1 (another mma pass).
+// of that is carried over. Here each block computes one TH x TW output tile
+// of one sample as implicit GEMMs on the tensor cores (bf16 operands, f32
+// sums): M = pixels, N = output channels, K = 9 taps x input channels.
+//   1. conv1 over the (TH+2) x (TW+2) intermediate tile (the output tile
+//      and its 1-pixel ring). The input channels are streamed in chunks of
+//      16, each one k16 step a tap. A chunk's (TH+4) x (TW+4) input tile
+//      (2-pixel halo) is loaded into registers while the chunk before it is
+//      on the tensor cores, then rounded to bf16 into one of two shared
+//      buffers. Up to three input parts are read through separate pointers
+//      in part-major channel order, so no concatenated copy is written.
+//   2. The weights come as chunks of 9 taps x [rows x 16] bf16, each tap's
+//      block in 8 x 8 core matrices (prepared once per rollout,
+//      ops/packed_double_conv.prepare): at 128 rows a chunk is 36 KB, and
+//      the c1 weights of a call are up to 576 KB. They stream through a
+//      ring of 4 shared-memory stages fed by cp.async 16-byte copies:
+//      chunk q + 2 is in flight while chunk q is multiplied.
+//      Conv2's weight chunks follow conv1's through the same ring.
+//   3. The products are wgmma m64nNk16 on two warpgroups: A (64 pixels x
+//      16 channels of one tap) from registers, loaded with ldmatrix, each
+//      lane's row address absorbing the tap's shift and the halo (a shared
+//      memory descriptor cannot: a shifted window of a halo'd tile has no
+//      uniform stride between its 8-row groups); B (the tap's weight block)
+//      from shared memory through a descriptor, K-major without swizzle. Up
+//      to two taps' products stay in flight, across chunk boundaries too.
+//      Conv1: each warpgroup takes every m64 tile and half of N; conv2:
+//      half of the m64 tiles and all of N where their count is even.
+//   4. bias + PReLU (ReLU without a slope), rounded to bf16 once and kept
+//      in shared memory for all mid channels (49 KB at 128 channels and
+//      8 x 16). Conv2's zero padding means the intermediate is ZERO outside
+//      the image, not conv1 evaluated in the ring: the ring is masked on
+//      every edge tile.
+//   5. conv2 from that intermediate, + bias, written as NHWC f32; or, with
+//      the head, rounded to bf16 and taken through the 1x1 (mma.sync).
 // Precision follows the TPU kernel: x, h1 and h2 (before the head) are
 // rounded to bf16 where they enter a product, weights are bf16, and sums,
 // biases and PReLU are f32.
@@ -36,13 +48,12 @@
 // What bounds it on this card: one packed step at 256^2, g = 16, does
 // 178.9 GFLOP in its 14 calls and moves about 350 MB, so the function is
 // bound by operations at the bf16 tensor-core rate (0.181 ms a step at
-// 989 TFLOP/s, against 0.105 ms for the bytes at 3.35 TB/s). This first
-// version uses warp-level mma.sync, loads fragments from shared memory with
-// 32-bit loads (row strides padded so a warp's loads hit 32 distinct
-// banks), and stages each chunk synchronously; wgmma, TMA and a pipelined
-// ring of chunks are later work. The weights come prepared once per rollout
-// as bf16 in the chunked layout above (ops/packed_double_conv.prepare), so
-// staging a chunk is a straight 16-byte copy.
+// 989 TFLOP/s, against 0.105 ms for the bytes at 3.35 TB/s). The output
+// tile is chosen by the level's size (ops/packed_double_conv.tile_for):
+// 8 x 16 at 256^2 and 128^2 (3 m64 tiles in conv1, 2 in conv2), 4 x 8 at
+// 64^2 and below (1 and 1, half of conv2's rows padding), where 8 x 16
+// would give 2 to 32 blocks for 132 SMs. Both keep one block on each SM
+// (169 and 214 KiB of shared memory).
 //
 // Plain C entry point, bound from Python with ctypes
 // (ops/packed_double_conv.py). It launches on the caller's stream, does not
@@ -58,28 +69,20 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int TH = 8, TW = 16;          // output tile
-constexpr int MH = TH + 2, MW = TW + 2; // intermediate tile (1-pixel ring)
-constexpr int IH = TH + 4, IW = TW + 4; // input tile (2-pixel halo)
-constexpr int M1 = MH * MW;             // 180 intermediate pixels
-constexpr int M2 = TH * TW;             // 128 output pixels
-constexpr int CK = 16;                  // channels per K chunk: one k16 step a tap
-constexpr int XS = CK + 8;              // input tile row stride (bf16)
-constexpr int WROW = 9 * CK;            // a weight row of one chunk (bf16)
-constexpr int WS = WROW + 8;            // its shared-memory stride
-constexpr int THREADS = 256;            // 8 warps: 4 along M x 2 along N
-constexpr int MT1 = 3;                  // m16 tiles a warp in conv1 (4*3*16 >= 180)
-constexpr int MT2 = 2;                  // m16 tiles a warp in conv2 (4*2*16 = 128)
+constexpr int CK = 16;            // channels per K chunk: one k16 step a tap
+constexpr int XS = CK + 8;        // input tile pixel stride (bf16, 48 bytes)
+constexpr int WROW = 9 * CK;      // a weight row of one chunk (bf16)
+constexpr int THREADS = 256;      // 8 warps
 constexpr int MAX_PARTS = 3;
-constexpr int MAX_WIDTH = 128;          // mid, out and head channels
+constexpr int MAX_WIDTH = 128;    // mid, out and head channels
 
 struct Args {
   const float* x[MAX_PARTS];  // [B, H, W, c[i]] f32
   int c[MAX_PARTS];
-  const bf16* w1;     // [nck1][CMP][9][CK]
+  const bf16* w1;     // [nck1][9][CMP / 8][2][8][8] (ops/packed_double_conv)
   const float* b1;    // [cm]
   const float* slope; // [1] or null (ReLU)
-  const bf16* w2;     // [CMP / CK][COP][9][CK]
+  const bf16* w2;     // [CMP / CK][9][COP / 8][2][8][8]
   const float* b2;    // [co]
   const bf16* w3;     // [cep][COP] or null
   const float* b3;    // [ce]
@@ -87,13 +90,137 @@ struct Args {
   int H, W, cm, co, ce, cep, nck1, vec;
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x is the low half
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void fence_proxy_async() {  // generic -> async proxy
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the waits that complete them.
+template <int K>
+__device__ __forceinline__ void fence_regs(float (&r)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (m64 x N f32, this thread's N / 2) += A (m64 x k16 bf16, from this
+// warp's registers: the mma.m16n8k16 A fragment of its 16 rows) x B (k16 x
+// N bf16, K-major in shared memory, descriptor `db`). Asynchronous: the
+// caller commits and waits.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t db);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),
+        "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),
+        "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),
+        "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<32>(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 // d += A(16x16, row-major) * B(16x8, column-major); bf16 in, f32 sums.
@@ -110,18 +237,6 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// rows x (8 * vecs) bf16, contiguous in device memory -> shared memory rows
-// `stride` bf16 apart; 16-byte copies.
-__device__ __forceinline__ void stage_rows(bf16* dst, int stride,
-                                           const bf16* src, int rows,
-                                           int vecs) {
-  const uint4* s = reinterpret_cast<const uint4*>(src);
-  for (int i = threadIdx.x; i < rows * vecs; i += THREADS) {
-    const int r = i / vecs, v = i % vecs;
-    reinterpret_cast<uint4*>(dst + r * stride)[v] = s[i];
-  }
-}
-
 __device__ __forceinline__ const float* channel_ptr(const Args& a, size_t pix,
                                                    int cc) {
   if (cc < a.c[0]) return a.x[0] + pix * a.c[0] + cc;
@@ -130,270 +245,394 @@ __device__ __forceinline__ const float* channel_ptr(const Args& a, size_t pix,
   return a.x[2] + pix * a.c[2] + (cc - a.c[1]);
 }
 
-// Input channels [k*CK, k*CK + CK) of the 12x20 tile, rounded to bf16; zero
-// outside the image (conv1's padding) and beyond the last channel.
-__device__ __forceinline__ void stage_input(const Args& a, bf16* xs, int n,
-                                            int y0, int x0, int k, int cin) {
-  if (a.vec) {  // every part a multiple of 4 channels, 16-byte aligned
-    for (int i = threadIdx.x; i < IH * IW * (CK / 4); i += THREADS) {
-      const int p = i / (CK / 4), c4 = (i % (CK / 4)) * 4;
-      const int gy = y0 - 2 + p / IW, gx = x0 - 2 + p % IW;
-      const int cc = k * CK + c4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && cc < cin) {
-        const size_t pix = ((size_t)n * a.H + gy) * a.W + gx;
-        v = *reinterpret_cast<const float4*>(channel_ptr(a, pix, cc));
-      }
-      *reinterpret_cast<uint2*>(xs + p * XS + c4) =
-          make_uint2(pack_bf16(v.x, v.y), pack_bf16(v.z, v.w));
-    }
-  } else {
-    for (int i = threadIdx.x; i < IH * IW * CK; i += THREADS) {
-      const int p = i / CK, c = i % CK;
-      const int gy = y0 - 2 + p / IW, gx = x0 - 2 + p % IW;
-      const int cc = k * CK + c;
-      float v = 0.f;
-      if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && cc < cin) {
-        v = *channel_ptr(a, ((size_t)n * a.H + gy) * a.W + gx, cc);
-      }
-      xs[p * XS + c] = __float2bfloat16(v);
+// Sizes of one instance: TH x TW output tile, CMP and COP mid and out
+// channels (32 or 128), STAGES weight stages.
+template <int TH, int TW, int CMP, int COP, int STAGES>
+struct Cfg {
+  static constexpr int MH = TH + 2, MW = TW + 2, IH = TH + 4, IW = TW + 4;
+  static constexpr int M1 = MH * MW, M2 = TH * TW;
+  // m64 tiles of conv1 and conv2; each warpgroup takes every tile and half
+  // of N. Rows past M1 or M2 are padding.
+  static constexpr int G1 = (M1 + 63) / 64, G2 = (M2 + 63) / 64;
+  static constexpr int N1 = CMP / 2;
+  // conv2's tiles are split between the warpgroups, each with all of N,
+  // where their count is even (SPLIT2)
+  static constexpr bool SPLIT2 = G2 % 2 == 0;
+  static constexpr int T2 = SPLIT2 ? G2 / 2 : G2, N2 = SPLIT2 ? COP : COP / 2;
+  // the head (mma.sync): M2 rows as WM2 x MPW2 m16 tiles, WN2 warp columns
+  static constexpr int MT2 = M2 / 16;
+  static constexpr int WM2 = MT2 >= 4 ? 4 : MT2, WN2 = 8 / WM2;
+  static constexpr int MPW2 = MT2 / WM2;
+  static constexpr int XT = IH * IW * XS;             // one input buffer
+  static constexpr int WB = (CMP > COP ? CMP : COP) * WROW;
+  static constexpr int SB = WB > MAX_WIDTH * (COP + 8) ? WB : MAX_WIDTH * (COP + 8);
+  static constexpr int HSTR = CMP + 8;                // intermediate stride
+  static constexpr int HS = M1 * HSTR;
+  static constexpr size_t BYTES = (size_t)(2 * XT + STAGES * SB + HS) * sizeof(bf16);
+  // input groups of 4 channels a chunk, and how many a thread loads
+  static constexpr int NG = IH * IW * (CK / 4);
+  static constexpr int LV = (NG + THREADS - 1) / THREADS;
+  static_assert(M2 % 16 == 0 && MT2 % WM2 == 0, "whole m16 tiles");
+  static_assert(M2 * (COP + 8) <= SB && STAGES >= 2,
+                "the head's h2 and weights fit a ring stage each");
+};
+
+// Input channels [k*CK, k*CK + CK) of the tile, with every part a multiple
+// of 4 channels and 16-byte aligned (`vec`): into registers, as float4
+// groups, zero outside the image (conv1's padding) and beyond the last
+// channel. Stored later, rounded to bf16, by store_input.
+template <class C>
+__device__ __forceinline__ void load_input(float4 (&buf)[C::LV], const Args& a,
+                                           int n, int y0, int x0, int k,
+                                           int cin) {
+#pragma unroll
+  for (int i = 0; i < C::LV; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    const int p = idx / (CK / 4), c4 = (idx % (CK / 4)) * 4;
+    const int gy = y0 - 2 + p / C::IW, gx = x0 - 2 + p % C::IW;
+    const int cc = k * CK + c4;
+    buf[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (idx < C::NG && gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && cc < cin) {
+      const size_t pix = ((size_t)n * a.H + gy) * a.W + gx;
+      buf[i] = __ldg(reinterpret_cast<const float4*>(channel_ptr(a, pix, cc)));
     }
   }
 }
 
-template <int CMP, int COP>
-struct Smem {
-  static constexpr int WB = (CMP > COP ? CMP : COP) * WS;   // weight chunk
-  static constexpr int H2 = M2 * (COP + 8);                 // h2 before the head
-  static constexpr int REGB = WB > H2 ? WB : H2;
-  static constexpr int HS = M1 * (CMP + 8);                 // intermediate
-  __host__ __device__ static int region_a(int cep) {  // input tile or head weights
-    const int w3 = cep * (COP + 8);
-    return w3 > IH * IW * XS ? w3 : IH * IW * XS;
+template <class C>
+__device__ __forceinline__ void store_input(bf16* xs, const float4 (&buf)[C::LV]) {
+#pragma unroll
+  for (int i = 0; i < C::LV; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    if (idx >= C::NG) break;
+    const int p = idx / (CK / 4), c4 = (idx % (CK / 4)) * 4;
+    *reinterpret_cast<uint2*>(xs + p * XS + c4) =
+        make_uint2(pack_bf16(buf[i].x, buf[i].y), pack_bf16(buf[i].z, buf[i].w));
   }
-  __host__ __device__ static size_t bytes(int cep) {
-    return (size_t)(region_a(cep) + REGB + HS) * sizeof(bf16);
-  }
-};
+}
 
-// CMP, COP: mid and out channels padded to 32 or 128 (zero weights in the
-// padding). Each warp takes CMP/2 (conv1) or COP/2 (conv2) channels.
+// The same for any channel counts and alignments, one element at a time,
+// loaded and stored in one go (no prefetch).
+template <class C>
+__device__ __forceinline__ void stage_input_scalar(bf16* xs, const Args& a,
+                                                   int n, int y0, int x0,
+                                                   int k, int cin) {
+#pragma unroll 1
+  for (int e = threadIdx.x; e < C::NG * 4; e += THREADS) {
+    const int p = e / CK, c = e % CK;
+    const int gy = y0 - 2 + p / C::IW, gx = x0 - 2 + p % C::IW;
+    const int cc = k * CK + c;
+    float v = 0.f;
+    if (gy >= 0 && gy < a.H && gx >= 0 && gx < a.W && cc < cin)
+      v = __ldg(channel_ptr(a, ((size_t)n * a.H + gy) * a.W + gx, cc));
+    xs[p * XS + c] = __float2bfloat16(v);
+  }
+}
+
+// Weight chunk q of the stream (conv1's chunks, then conv2's) into ring
+// stage `dst`: rows x 9 x 16 bf16, one straight run of 16-byte cp.async
+// copies; then commit a group (empty past the last chunk, so every thread
+// counts the same groups).
 template <int CMP, int COP>
+__device__ __forceinline__ void issue_weights(bf16* dst, const Args& a, int q,
+                                              int total) {
+  if (q < total) {
+    const bool c1 = q < a.nck1;
+    const int vecs = (c1 ? CMP : COP) * WROW / 8;
+    const bf16* src = c1 ? a.w1 + (size_t)q * CMP * WROW
+                         : a.w2 + (size_t)(q - a.nck1) * COP * WROW;
+    const uint32_t base = smem_addr(dst);
+#pragma unroll 1
+    for (int i = threadIdx.x; i < vecs; i += THREADS)
+      cp_async16(base + i * 16, src + i * 8);
+  }
+  cp_async_commit();
+}
+
+// The weight chunk in shared memory, as prepared: for each tap a [ROWS x
+// 16] block of 8 x 8 core matrices, core (n / 8, k / 8) at byte
+// (n / 8) * 256 + (k / 8) * 128, its 8 rows 16 bytes apart. That is
+// wgmma's K-major layout without swizzle (LBO 128 bytes between the two k
+// halves, SBO 256 between 8-row groups of N), and 8 rows of one core are
+// one conflict-free ldmatrix phase.
+__device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
+  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)(128 >> 4) << 16) |
+         ((uint64_t)(256 >> 4) << 32);
+}
+
+// One chunk, 9 taps, on wgmma: G m64 tiles of this warpgroup, N columns
+// (the warpgroup's half) from b_tap0 (shared address of its first n-group
+// in tap 0). A comes from registers (ldmatrix at a_base[i] + the tap's
+// shift), in three buffers used in turn (tap % 3: the same in every chunk,
+// as 9 taps fill 3 rounds), so that up to two taps' products are in flight
+// while the next tap's fragments load. Returns with at most the last two
+// taps' products in flight.
+template <int G, int N, int ROWW, int ASTR, int TAPB>
+__device__ __forceinline__ void chunk_wgmma(float (&acc)[G][N / 2],
+                                            uint32_t (&af)[3][G][4],
+                                            const uint32_t (&a_base)[G],
+                                            uint32_t b_tap0) {
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int aoff = ((tap / 3) * ROWW + tap % 3) * ASTR * 2;
+    uint32_t (&ab)[G][4] = af[tap % 3];
+    wgmma_wait<2>();  // the products that read `ab` three taps ago are done
+#pragma unroll
+    for (int i = 0; i < G; ++i) ldmatrix_x4(ab[i], a_base[i] + aoff);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < G; ++i) wgmma_rs<N>(acc[i], ab[i], b_desc(b_tap0 + tap * TAPB));
+    wgmma_commit();
+  }
+}
+
+template <int G, int N>
+__device__ __forceinline__ void wgmma_drain(float (&acc)[G][N / 2]) {
+  wgmma_wait<0>();
+#pragma unroll
+  for (int i = 0; i < G; ++i) fence_regs<N / 2>(acc[i]);
+}
+
+template <int TH, int TW, int CMP, int COP, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
-packed_double_conv_kernel(const Args a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  using S = Smem<CMP, COP>;
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // [IH*IW][XS]; later w3
-  bf16* wb = xs + S::region_a(a.cep);            // [rows][WS]; later h2
-  bf16* hs = wb + S::REGB;                       // [M1][CMP + 8]
+packed_double_conv_kernel(const __grid_constant__ Args a) {
+  using C = Cfg<TH, TW, CMP, COP, STAGES>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // 2 x [IH*IW][XS]
+  bf16* ring = xs + 2 * C::XT;                   // STAGES x SB
+  bf16* hs = ring + STAGES * C::SB;              // [M1][HSTR]
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int wm = warp & 3, wn = warp >> 2;
   const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
   const int cin = a.c[0] + a.c[1] + a.c[2];
+  const int total = a.nck1 + CMP / CK;
+  // ldmatrix lanes: A row (lane & 7) + 8 ((lane >> 3) & 1), channel half
+  // lane >> 4. Warpgroup wg takes half of N; its warp wl rows 16 wl .. of
+  // each m64 tile, and the sums of rows g, g + 8 of those, columns 2t, 2t + 1
+  // of each n8 block.
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, ahalf = lane >> 4;
+  const int wg = warp >> 2, wl = warp & 3;
 
-  // ---- conv1: [192 rows of the 10x18 tile] x [9 * cin] x [CMP] ----------
-  constexpr int NT1 = CMP / 16;  // n8 tiles of this warp
-  float acc1[MT1][NT1][4];
+  // Weight chunk q + D is issued while chunk q is multiplied, into the
+  // stage of chunk q - 2, whose products all finished before any warp
+  // passed tap 2 of chunk q - 1, so before the barrier of chunk q.
+  constexpr int D = STAGES - 2;
 #pragma unroll
-  for (int i = 0; i < MT1; ++i)
-#pragma unroll
-    for (int j = 0; j < NT1; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc1[i][j][e] = 0.f;
-  int pb[MT1][2];  // input tile pixel of tap (0, 0) for the two rows g, g+8
-#pragma unroll
-  for (int i = 0; i < MT1; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int r = (wm * MT1 + i) * 16 + g + 8 * h;
-      pb[i][h] = r < M1 ? (r / MW) * IW + r % MW : 0;  // rows >= 180: unused
-    }
-  const bf16* w1b = wb + (wn * (CMP / 2) + g) * WS + 2 * t;
-  for (int k = 0; k < a.nck1; ++k) {
-    __syncthreads();  // the last chunk's fragments are read
-    stage_input(a, xs, n, y0, x0, k, cin);
-    stage_rows(wb, WS, a.w1 + (size_t)k * CMP * WROW, CMP, WROW / 8);
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = (tap / 3) * IW + tap % 3;
-      uint32_t af[MT1][4];
-#pragma unroll
-      for (int i = 0; i < MT1; ++i) {
-        const bf16* r0 = xs + (pb[i][0] + off) * XS + 2 * t;
-        const bf16* r1 = xs + (pb[i][1] + off) * XS + 2 * t;
-        af[i][0] = ld32(r0);
-        af[i][1] = ld32(r1);
-        af[i][2] = ld32(r0 + 8);
-        af[i][3] = ld32(r1 + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT1; ++j) {
-        const bf16* wp = w1b + j * 8 * WS + tap * CK;
-        const uint32_t b0 = ld32(wp), b1 = ld32(wp + 8);
-#pragma unroll
-        for (int i = 0; i < MT1; ++i) mma16816(acc1[i][j], af[i], b0, b1);
-      }
-    }
+  for (int s = 0; s < D; ++s) issue_weights<CMP, COP>(ring + s * C::SB, a, s, total);
+  float4 buf[C::LV];
+  if (a.vec) {
+    load_input<C>(buf, a, n, y0, x0, 0, cin);
+    store_input<C>(xs, buf);
+  } else {
+    stage_input_scalar<C>(xs, a, n, y0, x0, 0, cin);
   }
 
-  // bias + PReLU, rounded to bf16; zero outside the image (conv2's padding)
-  const float slope = a.slope != nullptr ? *a.slope : 0.f;
+  // ---- conv1: [M1 rows] x [9 * cin] x [CMP] ------------------------------
+  // Row r of the intermediate tile is pixel (r / MW, r % MW); its tap (0, 0)
+  // is input pixel (r / MW) * IW + r % MW.
+  int pa[C::G1];
 #pragma unroll
-  for (int i = 0; i < MT1; ++i)
+  for (int i = 0; i < C::G1; ++i) {
+    const int r = i * 64 + wl * 16 + arow;
+    pa[i] = r < C::M1 ? (r / C::MW) * C::IW + r % C::MW : 0;
+  }
+  float acc1[C::G1][C::N1 / 2];
+#pragma unroll
+  for (int i = 0; i < C::G1; ++i)
+#pragma unroll
+    for (int e = 0; e < C::N1 / 2; ++e) acc1[i][e] = 0.f;
+  uint32_t af1[3][C::G1][4];  // A fragments, three buffers
+#pragma unroll 1
+  for (int k = 0; k < a.nck1; ++k) {
+    cp_async_wait<D - 1>();  // this thread's copies of chunk k landed
+    fence_proxy_async();     // ... and are visible to wgmma
+    __syncthreads();  // everyone's; the readers of xs[(k + 1) & 1] are done
+    issue_weights<CMP, COP>(ring + ((k + D) % STAGES) * C::SB, a, k + D, total);
+    const bool more = k + 1 < a.nck1;
+    if (more && a.vec) load_input<C>(buf, a, n, y0, x0, k + 1, cin);
+    const bf16* xk = xs + (k & 1) * C::XT;
+    uint32_t a_base[C::G1];
+#pragma unroll
+    for (int i = 0; i < C::G1; ++i) a_base[i] = smem_addr(xk + pa[i] * XS + ahalf * 8);
+    const uint32_t wk = smem_addr(ring + (k % STAGES) * C::SB) + wg * (C::N1 / 8) * 256;
+    chunk_wgmma<C::G1, C::N1, C::IW, XS, CMP * 32>(acc1, af1, a_base, wk);
+    bf16* xnext = xs + ((k + 1) & 1) * C::XT;
+    if (more && a.vec) store_input<C>(xnext, buf);
+    if (more && !a.vec) stage_input_scalar<C>(xnext, a, n, y0, x0, k + 1, cin);
+  }
+  wgmma_drain<C::G1, C::N1>(acc1);
+
+  // bias + PReLU, rounded to bf16; zero outside the image (conv2's padding)
+  const float slope = a.slope != nullptr ? __ldg(a.slope) : 0.f;
+#pragma unroll
+  for (int i = 0; i < C::G1; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = (wm * MT1 + i) * 16 + g + 8 * h;
-      if (r >= M1) continue;
-      const int gy = y0 - 1 + r / MW, gx = x0 - 1 + r % MW;
+      const int r = i * 64 + wl * 16 + g + 8 * h;
+      if (r >= C::M1) continue;
+      const int gy = y0 - 1 + r / C::MW, gx = x0 - 1 + r % C::MW;
       const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
 #pragma unroll
-      for (int j = 0; j < NT1; ++j) {
-        const int c = wn * (CMP / 2) + j * 8 + 2 * t;
+      for (int j = 0; j < C::N1 / 8; ++j) {
+        const int c = wg * C::N1 + j * 8 + 2 * t;
         float v0 = 0.f, v1 = 0.f;
         if (inside) {
-          v0 = acc1[i][j][2 * h] + (c < a.cm ? a.b1[c] : 0.f);
-          v1 = acc1[i][j][2 * h + 1] + (c + 1 < a.cm ? a.b1[c + 1] : 0.f);
+          v0 = acc1[i][4 * j + 2 * h] + (c < a.cm ? __ldg(a.b1 + c) : 0.f);
+          v1 = acc1[i][4 * j + 2 * h + 1] + (c + 1 < a.cm ? __ldg(a.b1 + c + 1) : 0.f);
           v0 = fmaxf(v0, 0.f) + slope * fminf(v0, 0.f);
           v1 = fmaxf(v1, 0.f) + slope * fminf(v1, 0.f);
         }
-        *reinterpret_cast<uint32_t*>(hs + r * (CMP + 8) + c) = pack_bf16(v0, v1);
+        *reinterpret_cast<uint32_t*>(hs + r * C::HSTR + c) = pack_bf16(v0, v1);
       }
     }
 
-  // ---- conv2: [128 output pixels] x [9 * CMP] x [COP] ---------------------
-  // m16 tile wm*MT2 + i is output row oy of the tile; its rows g, g+8 are
-  // output columns g, g+8.
-  constexpr int NT2 = COP / 16;
-  float acc2[MT2][NT2][4];
+  // ---- conv2: [M2 output pixels] x [9 * CMP] x [COP] ---------------------
+  // Output row r is pixel (r / TW, r % TW); its tap (0, 0) is intermediate
+  // pixel (r / TW) * MW + r % TW.
+  const int t2 = C::SPLIT2 ? wg * C::T2 : 0;  // this warpgroup's first m64
+  const int ncol2 = C::SPLIT2 ? 0 : wg;        // and block of N2 columns
+  int ph[C::T2];
 #pragma unroll
-  for (int i = 0; i < MT2; ++i)
-#pragma unroll
-    for (int j = 0; j < NT2; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc2[i][j][e] = 0.f;
-  const bf16* w2b = wb + (wn * (COP / 2) + g) * WS + 2 * t;
-#pragma unroll 1
-  for (int k = 0; k < CMP / CK; ++k) {
-    __syncthreads();  // conv1's (or the last chunk's) reads of wb are done
-    stage_rows(wb, WS, a.w2 + (size_t)k * COP * WROW, COP, WROW / 8);
-    __syncthreads();
-#pragma unroll
-    for (int tap = 0; tap < 9; ++tap) {
-      const int off = (tap / 3) * MW + tap % 3;
-      uint32_t af[MT2][4];
-#pragma unroll
-      for (int i = 0; i < MT2; ++i) {
-        const int q0 = (wm * MT2 + i) * MW + g + off;
-        const bf16* r0 = hs + q0 * (CMP + 8) + k * CK + 2 * t;
-        const bf16* r1 = r0 + 8 * (CMP + 8);
-        af[i][0] = ld32(r0);
-        af[i][1] = ld32(r1);
-        af[i][2] = ld32(r0 + 8);
-        af[i][3] = ld32(r1 + 8);
-      }
-#pragma unroll
-      for (int j = 0; j < NT2; ++j) {
-        const bf16* wp = w2b + j * 8 * WS + tap * CK;
-        const uint32_t b0 = ld32(wp), b1 = ld32(wp + 8);
-#pragma unroll
-        for (int i = 0; i < MT2; ++i) mma16816(acc2[i][j], af[i], b0, b1);
-      }
-    }
+  for (int i = 0; i < C::T2; ++i) {
+    const int r = (t2 + i) * 64 + wl * 16 + arow;
+    ph[i] = r < C::M2 ? (r / TW) * C::MW + r % TW : 0;
   }
+  float acc2[C::T2][C::N2 / 2];
+#pragma unroll
+  for (int i = 0; i < C::T2; ++i)
+#pragma unroll
+    for (int e = 0; e < C::N2 / 2; ++e) acc2[i][e] = 0.f;
+  uint32_t af2[3][C::T2][4];
+#pragma unroll 1
+  for (int k2 = 0; k2 < CMP / CK; ++k2) {
+    const int q = a.nck1 + k2;
+    cp_async_wait<D - 1>();
+    fence_proxy_async();
+    __syncthreads();  // also: the intermediate is written
+    issue_weights<CMP, COP>(ring + ((q + D) % STAGES) * C::SB, a, q + D, total);
+    uint32_t a_base[C::T2];
+#pragma unroll
+    for (int i = 0; i < C::T2; ++i)
+      a_base[i] = smem_addr(hs + ph[i] * C::HSTR + k2 * CK + ahalf * 8);
+    const uint32_t wk = smem_addr(ring + (q % STAGES) * C::SB) + ncol2 * (C::N2 / 8) * 256;
+    chunk_wgmma<C::T2, C::N2, C::MW, C::HSTR, COP * 32>(acc2, af2, a_base, wk);
+  }
+  wgmma_drain<C::T2, C::N2>(acc2);
 
   if (a.w3 == nullptr) {  // conv2 + bias is the output
 #pragma unroll
-    for (int i = 0; i < MT2; ++i)
+    for (int i = 0; i < C::T2; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int gy = y0 + wm * MT2 + i, gx = x0 + g + 8 * h;
-        if (gy >= a.H || gx >= a.W) continue;
+        const int r = (t2 + i) * 64 + wl * 16 + g + 8 * h;
+        const int gy = y0 + r / TW, gx = x0 + r % TW;
+        if (r >= C::M2 || gy >= a.H || gx >= a.W) continue;
         float* op = a.out + (((size_t)n * a.H + gy) * a.W + gx) * a.co;
 #pragma unroll
-        for (int j = 0; j < NT2; ++j) {
-          const int c = wn * (COP / 2) + j * 8 + 2 * t;
-          if (c < a.co) op[c] = acc2[i][j][2 * h] + a.b2[c];
-          if (c + 1 < a.co) op[c + 1] = acc2[i][j][2 * h + 1] + a.b2[c + 1];
+        for (int j = 0; j < C::N2 / 8; ++j) {
+          const int c = ncol2 * C::N2 + j * 8 + 2 * t;
+          if (c < a.co) op[c] = acc2[i][4 * j + 2 * h] + __ldg(a.b2 + c);
+          if (c + 1 < a.co) op[c + 1] = acc2[i][4 * j + 2 * h + 1] + __ldg(a.b2 + c + 1);
         }
       }
     return;
   }
 
-  // ---- the 1x1 head: bf16(h2 + b2) [128] x [COP] x [cep] ------------------
-  __syncthreads();  // every warp's reads of the last w2 chunk are done
-  bf16* h2s = wb;   // [M2][COP + 8]
-  bf16* w3s = xs;   // [cep][COP + 8]
+  // ---- the 1x1 head: bf16(h2 + b2) [M2] x [COP] x [cep] ------------------
+  cp_async_wait<0>();
+  __syncthreads();  // every warp's reads of the ring are done
+  bf16* h2s = ring;          // [M2][COP + 8]
+  bf16* w3s = ring + C::SB;  // [cep][COP + 8]
 #pragma unroll
-  for (int i = 0; i < MT2; ++i)
+  for (int i = 0; i < C::T2; ++i)
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int r = (wm * MT2 + i) * 16 + g + 8 * h;
+      const int r = (t2 + i) * 64 + wl * 16 + g + 8 * h;
+      if (r >= C::M2) continue;
 #pragma unroll
-      for (int j = 0; j < NT2; ++j) {
-        const int c = wn * (COP / 2) + j * 8 + 2 * t;
-        const float v0 = c < a.co ? acc2[i][j][2 * h] + a.b2[c] : 0.f;
-        const float v1 = c + 1 < a.co ? acc2[i][j][2 * h + 1] + a.b2[c + 1] : 0.f;
+      for (int j = 0; j < C::N2 / 8; ++j) {
+        const int c = ncol2 * C::N2 + j * 8 + 2 * t;
+        const float v0 = c < a.co ? acc2[i][4 * j + 2 * h] + __ldg(a.b2 + c) : 0.f;
+        const float v1 = c + 1 < a.co ? acc2[i][4 * j + 2 * h + 1] + __ldg(a.b2 + c + 1) : 0.f;
         *reinterpret_cast<uint32_t*>(h2s + r * (COP + 8) + c) = pack_bf16(v0, v1);
       }
     }
-  stage_rows(w3s, COP + 8, a.w3, a.cep, COP / 8);
+  {
+    const uint4* s = reinterpret_cast<const uint4*>(a.w3);
+    for (int i = threadIdx.x; i < a.cep * (COP / 8); i += THREADS) {
+      const int r = i / (COP / 8), v = i % (COP / 8);
+      reinterpret_cast<uint4*>(w3s + r * (COP + 8))[v] = s[i];
+    }
+  }
   __syncthreads();
-  for (int nt = wn; nt < a.cep / 8; nt += 2) {
-    float acc3[MT2][4];
+  // the head's products on mma.sync: M2 rows as WM2 x MPW2 m16 tiles
+  const int hm = warp % C::WM2, hn = warp / C::WM2;
+  for (int nt = hn; nt < a.cep / 8; nt += C::WN2) {
+    float acc3[C::MPW2][4];
 #pragma unroll
-    for (int i = 0; i < MT2; ++i)
+    for (int i = 0; i < C::MPW2; ++i)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc3[i][e] = 0.f;
     const bf16* wp0 = w3s + (nt * 8 + g) * (COP + 8) + 2 * t;
 #pragma unroll
     for (int ks = 0; ks < COP / 16; ++ks) {
-      const uint32_t b0 = ld32(wp0 + ks * 16), b1 = ld32(wp0 + ks * 16 + 8);
+      const uint32_t b0 = *reinterpret_cast<const uint32_t*>(wp0 + ks * 16);
+      const uint32_t b1 = *reinterpret_cast<const uint32_t*>(wp0 + ks * 16 + 8);
 #pragma unroll
-      for (int i = 0; i < MT2; ++i) {
-        const bf16* r0 = h2s + ((wm * MT2 + i) * 16 + g) * (COP + 8) + ks * 16 + 2 * t;
-        const bf16* r1 = r0 + 8 * (COP + 8);
-        const uint32_t af[4] = {ld32(r0), ld32(r1), ld32(r0 + 8), ld32(r1 + 8)};
+      for (int i = 0; i < C::MPW2; ++i) {
+        uint32_t af[4];
+        ldmatrix_x4(af, smem_addr(h2s + ((hm * C::MPW2 + i) * 16 + arow) * (COP + 8) +
+                                  ks * 16 + ahalf * 8));
         mma16816(acc3[i], af, b0, b1);
       }
     }
     const int e = nt * 8 + 2 * t;
 #pragma unroll
-    for (int i = 0; i < MT2; ++i)
+    for (int i = 0; i < C::MPW2; ++i)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int gy = y0 + wm * MT2 + i, gx = x0 + g + 8 * h;
+        const int r = (hm * C::MPW2 + i) * 16 + g + 8 * h;
+        const int gy = y0 + r / TW, gx = x0 + r % TW;
         if (gy >= a.H || gx >= a.W) continue;
         float* op = a.out + (((size_t)n * a.H + gy) * a.W + gx) * a.ce;
-        if (e < a.ce) op[e] = acc3[i][2 * h] + a.b3[e];
-        if (e + 1 < a.ce) op[e + 1] = acc3[i][2 * h + 1] + a.b3[e + 1];
+        if (e < a.ce) op[e] = acc3[i][2 * h] + __ldg(a.b3 + e);
+        if (e + 1 < a.ce) op[e + 1] = acc3[i][2 * h + 1] + __ldg(a.b3 + e + 1);
       }
   }
 }
 
-template <int CMP, int COP>
+template <int TH, int TW, int CMP, int COP, int STAGES>
 cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
-  // Raise the instance's shared-memory limit to the most it can use, once
-  // for each device, so no attribute call falls inside a CUDA-graph capture
-  // after the first launch.
+  using C = Cfg<TH, TW, CMP, COP, STAGES>;
+  auto kernel = packed_double_conv_kernel<TH, TW, CMP, COP, STAGES>;
+  // Raise the instance's shared-memory limit once for each device, so no
+  // attribute call falls inside a CUDA-graph capture after the first launch.
   static unsigned long long devices_done = 0;
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= 64) return cudaErrorInvalidDevice;
   if (!((devices_done >> device) & 1ull)) {
-    err = cudaFuncSetAttribute(packed_double_conv_kernel<CMP, COP>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)Smem<CMP, COP>::bytes(MAX_WIDTH));
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::BYTES);
     if (err != cudaSuccess) return err;
     devices_done |= 1ull << device;
   }
-  const size_t bytes = Smem<CMP, COP>::bytes(a.cep);
   const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, B);
-  packed_double_conv_kernel<CMP, COP><<<grid, THREADS, bytes, stream>>>(a);
+  kernel<<<grid, THREADS, C::BYTES, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The output tiles (ops/packed_double_conv.TILES): 0 is 8 x 16, 1 is 4 x 8;
+// RING weight stages each. TILE_H: their heights.
+constexpr int RING = 4;
+constexpr int TILE_H[2] = {8, 4};
+
+template <int CMP, int COP>
+cudaError_t launch_tile(const Args& a, int B, int tile, cudaStream_t s) {
+  if (tile == 0) return launch<8, 16, CMP, COP, RING>(a, B, s);
+  return launch<4, 8, CMP, COP, RING>(a, B, s);
 }
 
 bool valid_pad(int padded, int c) {
@@ -402,27 +641,42 @@ bool valid_pad(int padded, int c) {
 
 }  // namespace
 
+// The dynamic shared memory of one instance, in bytes (tile as below), or
+// -1 for widths it does not take.
+extern "C" int hn_packed_double_conv_smem(int tile, int cmp, int cop) {
+#define HN_SMEM(M, O)                                                    \
+  if (cmp == M && cop == O)                                              \
+    return tile == 0 ? (int)Cfg<8, 16, M, O, RING>::BYTES                \
+                     : (int)Cfg<4, 8, M, O, RING>::BYTES;
+  HN_SMEM(32, 32) HN_SMEM(32, 128) HN_SMEM(128, 32) HN_SMEM(128, 128)
+#undef HN_SMEM
+  return -1;
+}
+
 // x0, x1, x2: [B, H, W, c0|c1|c2] f32 (x1 and x2 may be null with c = 0);
-// w1: bf16 [ceil((c0+c1+c2)/16)][cmp][9][16], the c1 weights of the
+// w1: bf16 [ceil((c0+c1+c2)/16)][9][cmp/8][2][8][8] (chunk, tap, 8 x 8 core
+//     matrix (n/8, k/8), n % 8, k % 8), the c1 weights of the
 //     part-major channel concatenation; b1: [cm]; slope: [1] or null (ReLU);
-// w2: bf16 [cmp/16][cop][9][16]; b2: [co];
+// w2: bf16 [cmp/16][9][cop/8][2][8][8]; b2: [co];
 // w3: bf16 [cep][cop] and b3: [ce] (the 1x1 head), or null with ce = 0;
 // out: [B, H, W, ce] with the head, else [B, H, W, co]. f32 contiguous.
 // cmp, cop: cm and co padded to 32 or 128; cep: ce padded to 8.
 // vec: every part's channel count is a multiple of 4 and its pointer 16-byte
-// aligned (vector loads of the input).
+// aligned (vector loads of the input). tile: 0 for 8 x 16 output tiles, 1
+// for 4 x 8 (ops/packed_double_conv.tile_for).
 extern "C" int hn_packed_double_conv(
     const float* x0, int c0, const float* x1, int c1, const float* x2, int c2,
     const void* w1, const float* b1, const float* slope, const void* w2,
     const float* b2, const void* w3, const float* b3, float* out, int B,
     int H, int W, int cm, int co, int ce, int cmp, int cop, int cep, int vec,
-    void* stream) {
+    int tile, void* stream) {
+  const int tile_h = tile >= 0 && tile < 2 ? TILE_H[tile] : 1;
   if (x0 == nullptr || c0 <= 0 || c1 < 0 || c2 < 0 ||
       (c1 > 0 && x1 == nullptr) || (c2 > 0 && (x2 == nullptr || c1 == 0)) ||
       w1 == nullptr || b1 == nullptr || w2 == nullptr || b2 == nullptr ||
       out == nullptr || !valid_pad(cmp, cm) || !valid_pad(cop, co) ||
-      B <= 0 || B > 65535 || H <= 0 || W <= 0 ||
-      (H + TH - 1) / TH > 65535) {
+      tile < 0 || tile > 1 || B <= 0 || B > 65535 || H <= 0 || W <= 0 ||
+      (H + tile_h - 1) / tile_h > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   if (w3 == nullptr) {
@@ -455,8 +709,8 @@ extern "C" int hn_packed_double_conv(
   a.nck1 = (c0 + c1 + c2 + CK - 1) / CK;
   a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (cmp == 32 && cop == 32) return (int)launch<32, 32>(a, B, s);
-  if (cmp == 32 && cop == 128) return (int)launch<32, 128>(a, B, s);
-  if (cmp == 128 && cop == 32) return (int)launch<128, 32>(a, B, s);
-  return (int)launch<128, 128>(a, B, s);
+  if (cmp == 32 && cop == 32) return (int)launch_tile<32, 32>(a, B, tile, s);
+  if (cmp == 32 && cop == 128) return (int)launch_tile<32, 128>(a, B, tile, s);
+  if (cmp == 128 && cop == 32) return (int)launch_tile<128, 32>(a, B, tile, s);
+  return (int)launch_tile<128, 128>(a, B, tile, s);
 }

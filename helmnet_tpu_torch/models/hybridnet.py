@@ -17,7 +17,10 @@ because its TPU kernel packs 16 pixels per lane row
 (`pallas_pixconv.py:234-247`); the CUDA kernel masks ragged tiles and has
 no such limit, and the function computed is the same. A width the
 kernel does not take (more than 16 channels) raises there; it does not
-fall back. Otherwise (`'xla'`) the DoubleConvs are cuDNN convs in f32.
+fall back. `prepare_k1` converts the kernel's weights once
+(`solvers/iterative.rollout` calls it once per rollout) and keeps them
+under `K1_KEY`; `apply` converts them in the call where they are
+missing. Otherwise (`'xla'`) the DoubleConvs are cuDNN convs in f32.
 """
 
 from __future__ import annotations
@@ -27,7 +30,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..core.config import ModelConfig
-from ..ops.double_conv import fused_double_conv
+from ..ops.double_conv import fused_double_conv, prepare
 from .blocks import (
     conv2d,
     conv_transpose2d,
@@ -37,6 +40,35 @@ from .blocks import (
     init_conv_transpose,
     init_double_conv,
 )
+
+
+K1_KEY = "k1"  # a DoubleConv's prepared K1 weights in a params tree
+
+
+def uses_kernel(cfg: ModelConfig) -> bool:
+    """True when `apply` sends the DoubleConvs to K1."""
+    return (cfg.double_conv_mode == "pallas" and cfg.precision == "default"
+            and cfg.activation_function in ("prelu", "relu"))
+
+
+def prepare_k1(params, cfg: ModelConfig):
+    """The params with each DoubleConv's K1 weights converted once
+    (`ops.double_conv.prepare`, the outc head folded into `decode[0]`'s)
+    and kept under `K1_KEY`, on the weights' device."""
+
+    def prep(p, post=None):
+        if K1_KEY in p:  # prepared already
+            return p
+        return dict(p, **{K1_KEY: prepare(p if post is None else dict(p, post=post))})
+
+    out = dict(params, inc=prep(params["inc"]))
+    out["enc"] = [
+        {k: prep(v) if k.startswith("conv_") else v for k, v in blk.items()}
+        for blk in params["enc"]
+    ]
+    out["decode"] = [prep(p, params["outc"] if i == 0 else None)
+                     for i, p in enumerate(params["decode"])]
+    return out
 
 
 def states_dimension(domain_size, depth: int) -> list[tuple[int, int]]:
@@ -111,16 +143,14 @@ def apply(
     (out[B, H, W, 2], new_states)."""
     act = cfg.activation_function
     prec = cfg.precision
-    use_kernel = (
-        cfg.double_conv_mode == "pallas"
-        and prec == "default"
-        and act in ("prelu", "relu")
-    )
+    use_kernel = uses_kernel(cfg)
 
     def dconv(p, *parts, post=None):
         if use_kernel:
-            fp = p if post is None else dict(p, post=post)
-            return fused_double_conv(fp, tuple(t.contiguous() for t in parts))
+            pw = p.get(K1_KEY)  # prepared by `prepare_k1`, else converted there
+            if pw is None:
+                pw = p if post is None else dict(p, post=post)
+            return fused_double_conv(pw, tuple(t.contiguous() for t in parts))
         t = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
         h = double_conv(p, t, act, prec)
         if post is not None:

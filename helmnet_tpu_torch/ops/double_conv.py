@@ -16,20 +16,34 @@ optional "post": {"w": [c_emit, cout, 1, 1], "b"}}`.
 - `double_conv_plain` is the same function in plain PyTorch, with the
   kernel's bf16 roundings. The CPU tests use it, and `chip_smoke.py`
   holds the kernel against it on the card.
-- `fused_double_conv` launches the kernel for CUDA tensors, or raises.
-  It takes the plain version only for tensors on the CPU.
-  `fused_double_conv.launches` counts its launches.
+- `prepare(params)` converts the weights once into the kernel's layout
+  (`PreparedDoubleConv`: bf16 B fragments of the tensor-core products,
+  widths padded to 8 or 16; f32 biases). `solvers/iterative.rollout`
+  does it once per rollout (`models.hybridnet.prepare_k1`).
+- `tile_for(batch, height, width)` picks the kernel's output tile.
+- `fused_double_conv` takes the schema dict or a `PreparedDoubleConv`,
+  launches the kernel for CUDA tensors, or raises. It takes the plain
+  version only for tensors on the CPU. `fused_double_conv.launches`
+  counts its launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 MAX_CHANNELS = 16
 MAX_PARTS = 2
+SMS = 132  # streaming multiprocessors of an H100 SXM
+# 16 x 16 output tiles where they give at least this many blocks, else
+# 8 x 8 (chip_smoke.py phase 5 times each call at both tiles)
+BIG_TILE_MIN_BLOCKS = 2 * SMS
+TILES = ((16, 16), (8, 8))  # the kernel's `tile` argument indexes this
 
 
 def _parts(x) -> tuple:
@@ -83,6 +97,130 @@ def supported(height: int, width: int, cin, cmid: int, cout: int,
     )
 
 
+def _tiles(height: int, width: int, tile) -> int:
+    return -(-height // tile[0]) * -(-width // tile[1])
+
+
+def tile_for(batch: int, height: int, width: int) -> tuple[int, int]:
+    """The kernel's output tile for a `batch` x `height` x `width` call:
+    16 x 16 where that launches at least `BIG_TILE_MIN_BLOCKS` blocks with
+    at least half of each block's output pixels inside the image, else
+    8 x 8, whose smaller blocks fill the card at the small UNet levels."""
+    big = TILES[0]
+    live = height * width / (_tiles(height, width, big) * big[0] * big[1])
+    if batch * _tiles(height, width, big) >= BIG_TILE_MIN_BLOCKS and live >= 0.5:
+        return big
+    return TILES[1]
+
+
+def _pad8(c: int) -> int:
+    return 8 if c <= 8 else 16
+
+
+def _fragments(wk: torch.Tensor, k_pad: int, n_pad: int) -> torch.Tensor:
+    """A [K, N] matrix -> the B fragments of `mma.m16n8k16`, bf16:
+    [n_pad / 8, k_pad / 8, 32, 2], zero-padded. Element [nt, j, lane, e] is
+    wk[8 j + 2 (lane % 4) + e, 8 nt + lane // 4]: lane's two values of K
+    chunk j (8 rows of K) in n-tile nt."""
+    k, n = wk.shape
+    wp = wk.new_zeros((k_pad, n_pad))
+    wp[:k, :n] = wk
+    wp = wp.reshape(k_pad // 8, 4, 2, n_pad // 8, 8)  # j, t, e, nt, g
+    return wp.permute(3, 0, 4, 1, 2).reshape(n_pad // 8, k_pad // 8, 32, 2) \
+             .to(torch.bfloat16).contiguous()
+
+
+def _conv_k(w: torch.Tensor, c_pad: int) -> torch.Tensor:
+    """OIHW [o, i, 3, 3] -> [9 * c_pad, o]: row tap * c_pad + c holds
+    w[:, c, tap // 3, tap % 3], zero for c >= i."""
+    o, i = w.shape[:2]
+    wk = w.new_zeros((9, c_pad, o))
+    wk[:, :i] = w.reshape(o, i, 9).permute(2, 1, 0)
+    return wk.reshape(9 * c_pad, o)
+
+
+def _padded(b: torch.Tensor, n: int) -> torch.Tensor:
+    out = b.new_zeros(n, dtype=torch.float32)
+    out[: b.shape[0]] = b
+    return out
+
+
+@dataclass(frozen=True)
+class PreparedDoubleConv:
+    """One DoubleConv's weights in the kernel's layout, made by `prepare`.
+    `params` keeps the schema dict for the plain version and the shape
+    checks; the rest is what the kernel reads."""
+
+    params: dict
+    cin: int
+    cm: int
+    co: int
+    ce: int  # head width, 0 without the head
+    w1: torch.Tensor  # bf16 fragments [cmp/8, 9*cs/8, 32, 2]
+    w2: torch.Tensor  # [cop/8, 9*cmp/8, 32, 2]
+    w3: Optional[torch.Tensor]  # [cep/8, cop/8, 32, 2]
+    b1: torch.Tensor  # f32 [cmp], zero-padded
+    b2: torch.Tensor  # [cop]
+    b3: Optional[torch.Tensor]  # [cep]
+
+    @property
+    def cs(self) -> int:
+        return _pad8(self.cin)
+
+    @property
+    def cmp(self) -> int:
+        return _pad8(self.cm)
+
+    @property
+    def cop(self) -> int:
+        return _pad8(self.co)
+
+    @property
+    def cep(self) -> int:
+        return _pad8(self.ce) if self.ce else 0
+
+    def to(self, device) -> "PreparedDoubleConv":
+        """The same weights on `device` (what `hybridnet.params_to` calls)."""
+        move = lambda t: None if t is None else t.to(device)
+        tree = lambda p: ({k: tree(v) for k, v in p.items()} if isinstance(p, dict)
+                          else tuple(map(tree, p)) if isinstance(p, (tuple, list))
+                          else move(p))
+        return dataclasses.replace(
+            self, params=tree(self.params), w1=move(self.w1), w2=move(self.w2),
+            w3=move(self.w3), b1=move(self.b1), b2=move(self.b2), b3=move(self.b3))
+
+
+def prepare(params) -> PreparedDoubleConv:
+    """The schema dict (c1 weights whole or as per-part slices, optional
+    head) -> `PreparedDoubleConv`, on the weights' device. Shapes the
+    kernel does not take raise."""
+    if isinstance(params, PreparedDoubleConv):
+        return params
+    w1 = _w1(params)
+    cm, cin = int(w1.shape[0]), int(w1.shape[1])
+    w2 = params["c2"]["w"]
+    co = int(w2.shape[0])
+    post = params.get("post")
+    ce = int(post["w"].shape[0]) if post else 0
+    if not supported(1, 1, cin, cm, co, ce or co):
+        raise ValueError(
+            f"unsupported DoubleConv: {cin} -> {cm} -> {co} -> {ce or co} "
+            f"(at most {MAX_CHANNELS} channels each)")
+    cs, cmp, cop = _pad8(cin), _pad8(cm), _pad8(co)
+    w3 = b3 = None
+    if post:
+        cep = _pad8(ce)
+        w3 = _fragments(post["w"].reshape(ce, co).t(), cop, cep)
+        b3 = _padded(post["b"], cep)
+    return PreparedDoubleConv(
+        params=params, cin=cin, cm=cm, co=co, ce=ce,
+        w1=_fragments(_conv_k(w1, cs), 9 * cs, cmp),
+        w2=_fragments(_conv_k(w2, cmp), 9 * cmp, cop),
+        w3=w3, b1=_padded(params["c1"]["b"], cmp),
+        b2=_padded(params["c2"]["b"], cop), b3=b3,
+    )
+
+
 def _check(name: str, t: torch.Tensor, device: torch.device, shape) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -98,20 +236,33 @@ def _ptr(t):
     return None if t is None else ctypes.c_void_p(t.data_ptr())
 
 
-def fused_double_conv(params, x) -> torch.Tensor:
+def _vec(t: torch.Tensor, c: int, coff: int) -> int:
+    """Floats per load of an input part: 16-byte vectors where its width,
+    its channel offset in the staged tile and its pointer allow, else 8
+    bytes, else 4."""
+    for v in (4, 2):
+        if c % v == 0 and coff % v == 0 and t.data_ptr() % (4 * v) == 0:
+            return v
+    return 1
+
+
+def fused_double_conv(params, x, *, tile=None) -> torch.Tensor:
     """DoubleConv (+ optional 1x1 head) as one CUDA kernel launch.
 
-    Shapes the kernel does not take raise on every device. Within them,
-    CPU tensors take `double_conv_plain`; CUDA tensors launch the kernel or
-    raise. Returns `[B, H, W, c_emit]` f32.
+    `params`: the schema dict or a `PreparedDoubleConv` (a dict is
+    converted in the call). `tile`: one of `TILES`, by default
+    `tile_for`'s choice. Shapes the kernel does not take raise on every
+    device. Within them, CPU tensors take `double_conv_plain`; CUDA tensors
+    launch the kernel or raise. Returns `[B, H, W, c_emit]` f32.
     """
     parts = _parts(x)
     device = parts[0].device
     b, h, w = parts[0].shape[:3]
     cins = [int(p.shape[-1]) for p in parts]
-    w1 = _w1(params)
-    cm, co = int(w1.shape[0]), int(params["c2"]["w"].shape[0])
-    post = params.get("post")
+    fp = params.params if isinstance(params, PreparedDoubleConv) else params
+    w1 = _w1(fp)
+    cm, co = int(w1.shape[0]), int(fp["c2"]["w"].shape[0])
+    post = fp.get("post")
     ce = int(post["w"].shape[0]) if post else co
     if not supported(h, w, cins, cm, co, ce):
         raise ValueError(
@@ -120,35 +271,44 @@ def fused_double_conv(params, x) -> torch.Tensor:
             f"channels each)"
         )
     if device.type == "cpu":
-        return double_conv_plain(params, parts)
+        return double_conv_plain(fp, parts)
     if device.type != "cuda":
         raise ValueError(f"fused_double_conv runs on cuda or cpu, not {device}")
     for i, p in enumerate(parts):
         _check(f"x[{i}]", p, device, (b, h, w, cins[i]))
     _check("c1.w", w1, device, (cm, sum(cins), 3, 3))
-    _check("c1.b", params["c1"]["b"], device, (cm,))
-    _check("c2.w", params["c2"]["w"], device, (co, cm, 3, 3))
-    _check("c2.b", params["c2"]["b"], device, (co,))
-    slope = _slope(params)
+    _check("c1.b", fp["c1"]["b"], device, (cm,))
+    _check("c2.w", fp["c2"]["w"], device, (co, cm, 3, 3))
+    _check("c2.b", fp["c2"]["b"], device, (co,))
+    slope = _slope(fp)
     if slope is not None:
         _check("act.a", slope, device, (1,))
     if post:
         _check("post.w", post["w"], device, (ce, co, 1, 1))
         _check("post.b", post["b"], device, (ce,))
+    pw = prepare(params)
+    for name, t, dtype in (("w1", pw.w1, torch.bfloat16), ("w2", pw.w2, torch.bfloat16),
+                           ("w3", pw.w3, torch.bfloat16), ("b1", pw.b1, torch.float32),
+                           ("b2", pw.b2, torch.float32), ("b3", pw.b3, torch.float32)):
+        if t is not None and (t.device != device or t.dtype != dtype):
+            raise ValueError(f"prepared {name} is {t.dtype} on {t.device}, "
+                             f"expected {dtype} on {device}")
 
     from .._build import load_library
 
     lib = load_library()
     out = torch.empty((b, h, w, ce), dtype=torch.float32, device=device)
     x2 = parts[1] if len(parts) > 1 else None
+    c2 = cins[1] if x2 is not None else 0
+    tile = TILES.index(tile_for(b, h, w) if tile is None else tuple(tile))
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.hn_double_conv(
-            _ptr(parts[0]), cins[0], _ptr(x2), cins[1] if x2 is not None else 0,
-            _ptr(w1), _ptr(params["c1"]["b"]), _ptr(slope),
-            _ptr(params["c2"]["w"]), _ptr(params["c2"]["b"]),
-            _ptr(post["w"] if post else None), _ptr(post["b"] if post else None),
-            _ptr(out), b, h, w, cm, co, ce, ctypes.c_void_p(stream),
+            _ptr(parts[0]), cins[0], _vec(parts[0], cins[0], 0),
+            _ptr(x2), c2, _vec(x2, c2, cins[0]) if x2 is not None else 1,
+            _ptr(pw.w1), _ptr(pw.b1), _ptr(slope), _ptr(pw.w2), _ptr(pw.b2),
+            _ptr(pw.w3), _ptr(pw.b3), _ptr(out), b, h, w,
+            pw.cs, pw.cmp, pw.cop, co, ce, pw.cep, tile, ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"hn_double_conv launch failed: CUDA error {rc}")

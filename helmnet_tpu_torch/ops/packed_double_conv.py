@@ -14,8 +14,10 @@ sums, biases and PReLU are f32, as on the TPU. So its plain version is
 `double_conv.double_conv_plain`, reused here.
 
 - `prepare(params)` converts the weights once into the kernel's layout
-  (bf16, chunks of 16 input channels, widths padded): `PackedWeights`.
+  (bf16, chunks of 16 input channels, each tap's block in 8 x 8 core
+  matrices, widths padded): `PackedWeights`.
   models/packed.py does it once per rollout.
+- `tile_for(batch, height, width)` picks the kernel's output tile.
 - `packed_double_conv(params, x)` takes the schema dict or a
   `PackedWeights`. Shapes the kernel does not take raise on every device.
   CUDA tensors launch the kernel or raise; CPU tensors take the plain
@@ -35,6 +37,25 @@ from .double_conv import _check, _parts, _ptr, _slope, _w1, double_conv_plain
 MAX_PARTS = 3
 MAX_WIDTH = 128  # mid, out and head channels; the input is streamed
 CHUNK = 16  # input channels per K chunk of the kernel
+
+
+SMS = 132  # streaming multiprocessors of an H100 SXM
+TILES = ((8, 16), (4, 8))  # the kernel's `tile` argument indexes this
+
+
+def _blocks(batch: int, height: int, width: int, tile) -> int:
+    return batch * -(-height // tile[0]) * -(-width // tile[1])
+
+
+def tile_for(batch: int, height: int, width: int) -> tuple[int, int]:
+    """The kernel's output tile for a `batch` x `height` x `width` call:
+    the largest of `TILES` that gives at least half as many blocks as the
+    card has SMs, or the smallest (at g = 16, batch 1: 8 x 16 at 256^2 and
+    128^2, 4 x 8 at 64^2 and below)."""
+    for tile in TILES[:-1]:
+        if 2 * _blocks(batch, height, width, tile) >= SMS:
+            return tile
+    return TILES[-1]
 
 
 def padded_width(c: int) -> int:
@@ -60,13 +81,17 @@ def supported(height: int, width: int, cin, cmid: int, cout: int,
 
 
 def _chunked(w: torch.Tensor, rows: int, cin_pad: int) -> torch.Tensor:
-    """OIHW [o, i, 3, 3] -> bf16 [cin_pad / 16, rows, 9, 16], zero-padded:
-    element [k, n, tap, c] is w[n, 16 k + c, tap // 3, tap % 3]."""
+    """OIHW [o, i, 3, 3] -> bf16 [cin_pad / 16, 9, rows / 8, 2, 8, 8],
+    zero-padded: chunk k of 16 input channels, tap, and the 8 x 8 core
+    matrix (n // 8, c // 8) of that tap's [rows x 16] block; element
+    [k, tap, n // 8, c // 8, n % 8, c % 8] is w[n, 16 k + c, tap // 3,
+    tap % 3]. A chunk is one contiguous run, and each tap's block is the
+    K-major layout without swizzle that wgmma reads from shared memory."""
     o, i = w.shape[:2]
     wp = w.new_zeros((rows, cin_pad, 3, 3))
     wp[:o, :i] = w
-    wp = wp.reshape(rows, cin_pad // CHUNK, CHUNK, 9).permute(1, 0, 3, 2)
-    return wp.to(torch.bfloat16).contiguous()
+    wp = wp.reshape(rows // 8, 8, cin_pad // CHUNK, 2, 8, 9)  # ng r k kh c tap
+    return wp.permute(2, 5, 0, 3, 1, 4).to(torch.bfloat16).contiguous()
 
 
 @dataclass(frozen=True)
@@ -80,8 +105,8 @@ class PackedWeights:
     cm: int
     co: int
     ce: int  # head width, 0 without the head
-    w1: torch.Tensor  # bf16 [ceil(cin / 16), cmp, 9, 16]
-    w2: torch.Tensor  # bf16 [cmp / 16, cop, 9, 16]
+    w1: torch.Tensor  # bf16 [ceil(cin / 16), 9, cmp / 8, 2, 8, 8]
+    w2: torch.Tensor  # bf16 [cmp / 16, 9, cop / 8, 2, 8, 8]
     w3: Optional[torch.Tensor]  # bf16 [ce padded to 8, cop]
 
     @property
@@ -120,10 +145,11 @@ def prepare(params) -> PackedWeights:
     )
 
 
-def packed_double_conv(params, x) -> torch.Tensor:
+def packed_double_conv(params, x, *, tile=None) -> torch.Tensor:
     """DoubleConv (+ optional 1x1 head) on packed tensors as one CUDA
     kernel launch. `params`: the schema dict or a `PackedWeights`; `x`: an
-    NHWC tensor or a tuple of up to 3. Returns `[B, H, W, c_emit]` f32."""
+    NHWC tensor or a tuple of up to 3; `tile`: one of `TILES`, by default
+    `tile_for`'s choice. Returns `[B, H, W, c_emit]` f32."""
     parts = _parts(x)
     device = parts[0].device
     b, h, w = parts[0].shape[:3]
@@ -185,7 +211,8 @@ def packed_double_conv(params, x) -> torch.Tensor:
             _ptr(pw.w2), _ptr(fp["c2"]["b"]),
             _ptr(pw.w3), _ptr(post["b"] if post else None),
             _ptr(out), b, h, w, cm, co, pw.ce, pw.cmp, pw.cop, pw.cep,
-            int(vec), ctypes.c_void_p(stream),
+            int(vec), TILES.index(tile_for(b, h, w) if tile is None else tuple(tile)),
+            ctypes.c_void_p(stream),
         )
     if rc != 0:
         raise RuntimeError(f"hn_packed_double_conv launch failed: CUDA error {rc}")

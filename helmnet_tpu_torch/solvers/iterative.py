@@ -21,7 +21,7 @@ import torch
 
 from ..core.config import Config
 from ..core.device import resolve_device
-from ..models.hybridnet import params_to
+from ..models.hybridnet import params_to, prepare_k1, uses_kernel
 from ..models.registry import get_architecture
 from ..ops.source import point_source_map
 from ..ops.spectral import SpectralPML, helmholtz_residual, make_operator, resolve_mode
@@ -101,6 +101,8 @@ def rollout(
         raise ValueError("num_iterations must be divisible by decimate")
     dev = resolve_device(device)
     params = params_to(params, dev)
+    if uses_kernel(cfg.model):
+        params = prepare_k1(params, cfg.model)  # K1's weights, once a rollout
     op = op.to(dev)
     source = _on(source, dev)
     sos_maps = _on(sos_maps, dev)

@@ -128,3 +128,110 @@ def test_wrapper_rejects_unsupported_shapes_on_cpu(cins, cout):
     parts = tuple(torch.from_numpy(_x((1, 8, 8, c), seed=i)) for i, c in enumerate(cins))
     with pytest.raises(ValueError, match="unsupported"):
         fused_double_conv(tp, parts)
+
+
+def _unfragment(t: torch.Tensor) -> torch.Tensor:
+    """B fragments [n/8, k/8, 32, 2] back to the dense [k, n] matrix."""
+    nt, kc = t.shape[:2]
+    return (t.reshape(nt, kc, 8, 4, 2).permute(1, 3, 4, 0, 2)
+            .reshape(kc * 8, nt * 8))
+
+
+@pytest.mark.parametrize("cin,cm,co,ce,split", [
+    (2, 2, 2, None, None), (6, 8, 8, None, None), (10, 8, 2, None, (8, 2)),
+    (16, 8, 8, 2, (8, 8)), (16, 16, 16, 16, None), (3, 5, 7, 3, (1, 2)),
+])
+def test_prepared_layout(cin, cm, co, ce, split):
+    """Unpacking the kernel's fragments gives back the bf16-rounded OIHW
+    weights, zero in the padded widths (8 or 16), for whole and split c1
+    weights; biases are f32, zero-padded."""
+    from helmnet_tpu_torch.ops.double_conv import PreparedDoubleConv, prepare
+
+    rng = np.random.default_rng(cin * 100 + cm * 10 + co)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    w1 = t(cm, cin, 3, 3)
+    c1w = w1 if split is None else (w1[:, : split[0]], w1[:, split[0]:])
+    p = {"c1": {"w": c1w, "b": t(cm)}, "act": {"a": torch.tensor([0.25])},
+         "c2": {"w": t(co, cm, 3, 3), "b": t(co)}}
+    if ce:
+        p["post"] = {"w": t(ce, co, 1, 1), "b": t(ce)}
+    pw = prepare(p)
+    assert isinstance(pw, PreparedDoubleConv) and prepare(pw) is pw
+    pad = lambda c: 8 if c <= 8 else 16
+    cs, cmp, cop = pad(cin), pad(cm), pad(co)
+    assert (pw.cs, pw.cmp, pw.cop, pw.cep) == (cs, cmp, cop, pad(ce) if ce else 0)
+    assert pw.w1.dtype == pw.w2.dtype == torch.bfloat16
+    assert pw.w1.shape == (cmp // 8, 9 * cs // 8, 32, 2)
+    assert pw.w2.shape == (cop // 8, 9 * cmp // 8, 32, 2)
+    # [k = tap * c_pad + c, n] -> OIHW
+    d1 = _unfragment(pw.w1).reshape(9, cs, cmp).permute(2, 1, 0).reshape(cmp, cs, 3, 3)
+    d2 = _unfragment(pw.w2).reshape(9, cmp, cop).permute(2, 1, 0).reshape(cop, cmp, 3, 3)
+    torch.testing.assert_close(d1[:cm, :cin], w1.to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(d2[:co, :cm], p["c2"]["w"].to(torch.bfloat16),
+                               rtol=0, atol=0)
+    assert not d1[cm:].any() and not d1[:, cin:].any()
+    assert not d2[co:].any() and not d2[:, cm:].any()
+    assert pw.b1.dtype == torch.float32 and pw.b1.shape == (cmp,)
+    torch.testing.assert_close(pw.b1[:cm], p["c1"]["b"], rtol=0, atol=0)
+    assert not pw.b1[cm:].any() and not pw.b2[co:].any()
+    if ce:
+        cep = pad(ce)
+        assert pw.w3.shape == (cep // 8, cop // 8, 32, 2)
+        d3 = _unfragment(pw.w3)  # [o, e]
+        torch.testing.assert_close(d3[:co, :ce].t(),
+                                   p["post"]["w"][:, :, 0, 0].to(torch.bfloat16),
+                                   rtol=0, atol=0)
+        assert not d3[co:].any() and not d3[:, ce:].any()
+        assert pw.b3.shape == (cep,) and not pw.b3[ce:].any()
+    else:
+        assert pw.w3 is None and pw.b3 is None
+
+
+def test_wrapper_takes_prepared_weights_on_cpu():
+    """A `PreparedDoubleConv` gives the bits of its schema dict (the CPU
+    runs the plain version on `params`), and a shape the kernel does not
+    take raises when it is prepared."""
+    from helmnet_tpu_torch.ops.double_conv import prepare
+
+    tp = from_jax_params(_jax_params(10, 8), device="cpu")
+    parts = (torch.from_numpy(_x((2, 16, 16, 8))), torch.from_numpy(_x((2, 16, 16, 2))))
+    torch.testing.assert_close(fused_double_conv(prepare(tp), parts),
+                               fused_double_conv(tp, parts), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="unsupported"):
+        prepare(from_jax_params(_jax_params(18, 8), device="cpu"))
+
+
+# the levels of the 96^2 x 32 model (experiments/base.json, depth 4) and of
+# the 256^2, g = 16 packed model (batch 1)
+K1_LEVELS = [(32, 96 >> d) for d in range(5)]
+K3_LEVELS = [(1, 256 >> d) for d in range(5)]
+
+
+def _blocks(b, h, w, tile):
+    return b * -(-h // tile[0]) * -(-w // tile[1])
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K3"])
+def test_tile_choice_fills_blocks(kernel):
+    """At every level the chosen output tile leaves at least half of each
+    block's output pixels inside the image, and where the largest tile
+    would give fewer blocks than half the card's SMs a smaller one is
+    chosen."""
+    from helmnet_tpu_torch.ops import double_conv as k1
+    from helmnet_tpu_torch.ops import packed_double_conv as k3
+
+    mod, levels = (k1, K1_LEVELS) if kernel == "K1" else (k3, K3_LEVELS)
+    chosen = []
+    for b, n in levels:
+        tile = mod.tile_for(b, n, n)
+        assert tile in mod.TILES
+        live = n * n / (-(-n // tile[0]) * tile[0] * -(-n // tile[1]) * tile[1])
+        assert live >= 0.5, (kernel, n, tile, live)
+        if 2 * _blocks(b, n, n, mod.TILES[0]) < mod.SMS:
+            assert tile != mod.TILES[0], (kernel, n)
+        chosen.append(tile)
+    assert chosen[0] == mod.TILES[0]  # the largest level: the large tile
+    assert chosen[-1] == mod.TILES[-1]
+    # ragged grids and batch 1 at 96^2 go to the small tile
+    assert k1.tile_for(1, 96, 96) == k1.TILES[1]
+    assert k1.tile_for(3, 40, 72) == k1.TILES[1]

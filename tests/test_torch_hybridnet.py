@@ -94,6 +94,30 @@ def test_apply_pallas_default(activation):
     _close(tflat, jflat, 2e-2)
 
 
+def test_apply_prepared_k1_weights():
+    """`apply` on the params that `prepare_k1` made gives the bits of the
+    unprepared params, and both agree with the JAX package."""
+    jcfg, tcfg = _cfgs(precision="default", double_conv_mode="pallas",
+                       up_mode="subpixel")
+    jp = jax_layout_params(tcfg, 2, conv_scale=20.0)
+    tp = from_jax_params(jp, device="cpu")
+    prepared = th.prepare_k1(tp, tcfg)
+    assert th.K1_KEY in prepared["inc"] and th.K1_KEY in prepared["decode"][0]
+    assert prepared["decode"][0][th.K1_KEY].ce == 2  # the outc head folded in
+    assert all(th.K1_KEY in blk["conv_signal"] for blk in prepared["enc"])
+    x, states = _inputs(jcfg, 2)
+    tx = torch.from_numpy(x)
+    ts = tuple(torch.from_numpy(s) for s in states)
+    out_p, st_p = th.apply(prepared, tx, ts, cfg=tcfg)
+    out_u, st_u = th.apply(tp, tx, ts, cfg=tcfg)
+    torch.testing.assert_close(out_p, out_u, rtol=0, atol=0)
+    torch.testing.assert_close(th.flatten_states(st_p), th.flatten_states(st_u),
+                               rtol=0, atol=0)
+    jout, jst = jax.jit(jh.apply, static_argnames="cfg")(jp, x, states, cfg=jcfg)
+    _close(out_p.numpy(), np.asarray(jout), 2e-2)
+    _close(th.flatten_states(st_p).numpy(), np.asarray(jh.flatten_states(jst)), 2e-2)
+
+
 def test_pallas_mode_routes_every_double_conv(monkeypatch):
     """All 2*depth + 2 + depth DoubleConvs of a step reach the kernel
     wrapper, the last with the outc head folded in."""

@@ -81,6 +81,27 @@ def test_rollout_pallas_mode():
                                rtol=0.05, atol=1e-8)
 
 
+def test_rollout_prepares_k1_once(monkeypatch):
+    """`rollout` in 'pallas' mode converts the K1 weights once, before the
+    loop, and gives the same rmse with params prepared by the caller and
+    without; both agree with the JAX package."""
+    from helmnet_tpu_torch.models import hybridnet as th
+
+    js, ts = _solvers(precision="default", double_conv_mode="pallas")
+    calls = []
+    real = tit.prepare_k1
+    monkeypatch.setattr(tit, "prepare_k1",
+                        lambda p, cfg: calls.append(1) or real(p, cfg))
+    ref, got = _rollouts(js, ts, 3)
+    assert len(calls) == 1
+    src = np.broadcast_to(np.asarray(js.source), (B, N, N, 2)).copy()
+    again = tit.rollout(th.prepare_k1(ts.params, ts.cfg.model), ts.op, src,
+                        _sos(), cfg=ts.cfg, num_iterations=3, device="cpu")
+    torch.testing.assert_close(again["rmse"], got["rmse"], rtol=0, atol=0)
+    np.testing.assert_allclose(got["rmse"].numpy(), np.asarray(ref["rmse"]),
+                               rtol=0.05, atol=1e-8)
+
+
 def test_rollout_xla_highest_20_iterations():
     js, ts = _solvers(precision="highest")
     ref, got = _rollouts(js, ts, 20, collect=("rmse", "wavefields", "best"),

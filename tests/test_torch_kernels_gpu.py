@@ -86,6 +86,45 @@ def test_kernel_matches_plain(cuda, cins, cmid, cout, c_emit, h, w):
     _check(p, _inputs(rng, 3, h, w, cins, cuda))
 
 
+@pytest.mark.parametrize("with_head", [False, True])
+@pytest.mark.parametrize(
+    "b,h,w",
+    [(32, 6, 6), (32, 12, 12), (32, 24, 24), (3, 40, 72), (1, 96, 96),
+     (1, 24, 24)],
+)
+def test_kernel_tiles_and_prepared_weights(cuda, b, h, w, with_head):
+    """Both output tiles (`tile_for` picks 8 x 8 at the small levels and
+    for small batches, 16 x 16 else), ragged grids, batch 1, with and
+    without the head; prepared weights give the bits of weights converted
+    in the call."""
+    from helmnet_tpu_torch.ops.double_conv import prepare
+
+    rng = np.random.default_rng(h * 100 + w + b)
+    p = _params(rng, 16, 8, 8, cuda, c_emit=2 if with_head else None)
+    w1 = p["c1"]["w"]
+    split = dict(p, c1={"w": (w1[:, :8].contiguous(), w1[:, 8:].contiguous()),
+                        "b": p["c1"]["b"]})
+    parts = _inputs(rng, b, h, w, (8, 8), cuda)
+    _check(split, parts)
+    torch.testing.assert_close(fused_double_conv(prepare(split), parts),
+                               fused_double_conv(split, parts), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("tile", [(16, 16), (8, 8)])
+def test_kernel_at_either_tile(cuda, tile):
+    """Each output tile, chosen or not, gives the plain version's result."""
+    from helmnet_tpu_torch.ops.double_conv import prepare
+
+    rng = np.random.default_rng(12)
+    p = _params(rng, 10, 8, 8, cuda, c_emit=2)
+    parts = _inputs(rng, 2, 40, 56, (8, 2), cuda)
+    ref = double_conv_plain(p, parts)
+    got = fused_double_conv(prepare(p), parts, tile=tile)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=TOL * ref.abs().max().item())
+
+
 def test_relu_without_slope(cuda):
     rng = np.random.default_rng(1)
     p = _params(rng, 6, 8, 8, cuda, act=False)
@@ -188,6 +227,56 @@ def test_k3_matches_plain(cuda, cins, cmid, cout, c_emit, h, w):
                                    for a, b in zip(bounds[:-1], bounds[1:])),
                         "b": p["c1"]["b"]})
     _check_k3(split, _inputs(rng, 2, h, w, cins, cuda))
+
+
+@pytest.mark.parametrize(
+    "n,cins,cmid,cout,c_emit",
+    [
+        (16, (128,), 128, 128, None),          # decode[4]: the small tile
+        (32, (128, 32), 128, 128, None),       # enc[3].conv_signal
+        (32, (128, 32), 32, 32, None),         # enc[3].conv_state
+        (64, (128, 128), 128, 128, None),      # decode[2]
+        (256, (32, 32, 32), 128, 128, None),   # inc: the large tile, wgmma
+        (256, (128, 32), 32, 32, None),        # enc[0].conv_state
+        (256, (128, 128), 128, 128, 32),       # decode[0] with the head
+        (128, (128, 128), 128, 128, None),     # decode[1]
+    ],
+)
+def test_k3_levels_of_a_packed_step(cuda, n, cins, cmid, cout, c_emit):
+    """The widths of the 256^2, g = 16 packed step at its levels: 4 x 8
+    tiles on mma.sync at 64^2 and below, 8 x 16 tiles on wgmma through the
+    chunk ring at 128^2 and 256^2."""
+    from helmnet_tpu_torch.ops.packed_double_conv import TILES, tile_for
+
+    assert tile_for(1, n, n) == (TILES[0] if n >= 128 else TILES[-1])
+    rng = np.random.default_rng(n + cmid)
+    p = _params(rng, sum(cins), cmid, cout, cuda, c_emit=c_emit)
+    p["c1"]["w"] = p["c1"]["w"] * 0.3
+    p["c2"]["w"] = p["c2"]["w"] * 0.3
+    w1 = p["c1"]["w"]
+    bounds = np.cumsum((0,) + cins)
+    split = dict(p, c1={"w": tuple(w1[:, a:b].contiguous()
+                                   for a, b in zip(bounds[:-1], bounds[1:])),
+                        "b": p["c1"]["b"]})
+    _check_k3(split, _inputs(rng, 1, n, n, cins, cuda))
+
+
+@pytest.mark.parametrize("tile", [(8, 16), (4, 8)])
+def test_k3_at_either_tile(cuda, tile):
+    """Each K3 output tile, chosen or not, gives the plain version's result
+    (ragged edges, the head)."""
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv, prepare
+
+    rng = np.random.default_rng(13)
+    p = _params(rng, 160, 128, 128, cuda, c_emit=32)
+    p["c1"]["w"] = p["c1"]["w"] * 0.3
+    p["c2"]["w"] = p["c2"]["w"] * 0.3
+    parts = _inputs(rng, 1, 36, 20, (160,), cuda)
+    ref = double_conv_plain(p, parts)
+    got = packed_double_conv(prepare(p), parts, tile=tile)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=TOL * ref.abs().max().item())
 
 
 def test_k3_relu_without_slope(cuda):

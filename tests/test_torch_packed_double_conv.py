@@ -133,9 +133,18 @@ def test_wrapper_on_cpu_is_the_plain_version():
                                rtol=0, atol=0)
 
 
+def _unchunk(t: torch.Tensor) -> torch.Tensor:
+    """The prepared [k, tap, n // 8, c // 8, n % 8, c % 8] layout back to
+    [k, n, tap, c]."""
+    k, taps, ng = t.shape[:3]
+    return t.permute(0, 2, 4, 1, 3, 5).reshape(k, ng * 8, taps, CHUNK)
+
+
 def test_prepared_layout():
-    """The kernel reads w1 as [k, n, tap, c] = bf16(w1[n, 16k + c, tap // 3,
-    tap % 3]), zero-padded to the instance's widths, and w3 as [e, o]."""
+    """The kernel reads w1 as [k, tap, n // 8, c // 8, n % 8, c % 8] =
+    bf16(w1[n, 16k + c, tap // 3, tap % 3]), each tap's [n x 16] block in
+    8 x 8 core matrices, zero-padded to the instance's widths, and w3 as
+    [e, o]."""
     rng = np.random.default_rng(11)
     t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
     p = {"c1": {"w": (t(40, 20, 3, 3), t(40, 15, 3, 3)), "b": t(40)},
@@ -146,17 +155,21 @@ def test_prepared_layout():
     assert (pw.cin, pw.cm, pw.co, pw.ce) == (35, 40, 24, 5)
     assert (pw.cmp, pw.cop, pw.cep) == (128, 32, 8)
     assert pw.w1.dtype == torch.bfloat16
-    assert pw.w1.shape == (3, 128, 9, CHUNK)
-    assert pw.w2.shape == (128 // CHUNK, 32, 9, CHUNK)
+    assert pw.w1.shape == (3, 9, 128 // 8, 2, 8, 8)
+    assert pw.w2.shape == (128 // CHUNK, 9, 32 // 8, 2, 8, 8)
     assert pw.w3.shape == (8, 32)
     w1 = torch.cat(p["c1"]["w"], dim=1).to(torch.bfloat16)
     for k, n, tap, c in [(0, 0, 0, 0), (1, 39, 8, 3), (2, 7, 4, 2), (0, 3, 5, 15)]:
-        assert pw.w1[k, n, tap, c] == w1[n, CHUNK * k + c, tap // 3, tap % 3]
-    assert not pw.w1[2, :, :, 3:].any()   # channels 35..47: padding
-    assert not pw.w1[:, 40:].any()        # mid rows 40..127: padding
+        assert pw.w1[k, tap, n // 8, c // 8, n % 8, c % 8] == \
+            w1[n, CHUNK * k + c, tap // 3, tap % 3]
+    u1 = _unchunk(pw.w1)
+    assert not u1[2, :, :, 3:].any()   # channels 35..47: padding
+    assert not u1[:, 40:].any()        # mid rows 40..127: padding
     w2 = p["c2"]["w"].to(torch.bfloat16)
-    assert pw.w2[2, 23, 7, 3] == w2[23, 2 * CHUNK + 3, 2, 1]
-    assert not pw.w2[:, 24:].any() and not pw.w2[3:].any()
+    u2 = _unchunk(pw.w2)
+    assert u2[2, 23, 7, 3] == w2[23, 2 * CHUNK + 3, 2, 1]
+    assert pw.w2[2, 7, 23 // 8, 0, 23 % 8, 3] == w2[23, 2 * CHUNK + 3, 2, 1]
+    assert not u2[:, 24:].any() and not u2[3:].any()
     assert pw.w3[4, 23] == p["post"]["w"][4, 23, 0, 0].to(torch.bfloat16)
     assert not pw.w3[5:].any() and not pw.w3[:, 24:].any()
     assert padded_width(1) == 32 and padded_width(33) == 128

@@ -12,7 +12,7 @@ at bench.py's 512^2 x 8, and batched GMRES on the stencil operator at
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
-   of K1 and K3, its registers, shared memory and spills from ptxas's
+   of K1, K3 and K2, its registers, shared memory and spills from ptxas's
    resource lines (the whole log goes to --out);
 3. kernel against plain version: each of the 14 DoubleConv calls of one
    solver step, at their real shapes, with the weights prepared once
@@ -52,11 +52,15 @@ at bench.py's 512^2 x 8, and batched GMRES on the stencil operator at
    this run, and torch.profiler over 10 packed 'pallas' steps;
 9. K2 at bench.py's stencil_spmv_512 shape (512^2 x 8, order 4, seeded
    normal u): `residual_planes` (K2a), `residual_planes_tiled` (K2b,
-   tile_h=128) and `residual_planes_mxu` (K2c) against their plain
-   versions at atol 1e-5, 1e-5 and 2e-4 (tests/test_pallas_stencil.py:35,
-   90, 116), with k^2 = 1 and s = u (bench.py:258-267) and with random
-   k^2 and s; the same at order 2, on a ragged 40x72 grid (K2a) and
-   through the stride-2 channel-pair wrapper; each timed beside its bound,
+   tile_h=128) and `residual_planes_mxu` (K2c), all three one kernel,
+   against their plain versions at atol 1e-5, 1e-5 and 2e-4
+   (tests/test_pallas_stencil.py:35, 90, 116), with k^2 = 1 and s = u
+   (bench.py:258-267) and with random k^2 and s; the same at order 2, on
+   a ragged 40x72 grid (K2a) and through the stride-2 channel-pair
+   wrapper; each with the kernel instance it took and whether K2a and
+   K2b equal their plain versions to the bit; each timed warm (`ms`, a
+   CUDA-graph replay of repeated calls, as K1 and K3) and cold (`cold_ms`,
+   `cuda_cold_ms`: the L2 overwritten before every call) beside its bound,
    its plain version and the library's form of the same function (one
    cuSPARSE `torch.addmm` on the block-diagonal complex64 CSR of
    `stencil_to_csr`, itself held against the plain version at atol 1e-4,
@@ -72,8 +76,10 @@ at bench.py's 512^2 x 8, and batched GMRES on the stencil operator at
    cycles within rtol 1e-6 of the same solve with the plain matvec on the
    card; the wall of 3 more solves (median and best); K2a at the
    matvec's own shape (stride-2 complex64 views, no source) against its
-   plain version at atol 1e-5, timed beside its bound, its plain version
-   and cuSPARSE; the 32^2 problem of tests/test_gmres.py:131-153 against
+   plain version at atol 1e-5, with its instance, timed warm and cold
+   beside its bound, its plain version, cuSPARSE and an elementwise pass
+   over the same bytes; the 32^2 problem of tests/test_gmres.py:131-153
+   against
    scipy's spsolve of `stencil_to_csr` within 5e-3 max|u|; K2's share of
    a solve's device time (torch.profiler).
 
@@ -167,6 +173,50 @@ def cuda_ms(fn, iters: int = 50, graph: bool = True) -> float:
     return start.elapsed_time(end) / iters
 
 
+def cuda_cold_ms(fn, iters: int = 50) -> float:
+    """Mean device time of fn() in ms with a cold L2: one CUDA graph holds
+    `iters` x (a write over a buffer of twice the L2's size, then fn()),
+    another `iters` x the write alone, both captured on one stream; the
+    difference of their replays (CUDA events, after a warm-up replay) per
+    call, the median of 3 such pairs. fn() then reads its inputs from
+    device memory, as a caller whose data was swept out by other work
+    finds them."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    flush = torch.empty(2 * l2 // 4 + 1, dtype=torch.float32, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            flush.fill_(1.0)
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graphs = []
+    for with_fn in (True, False):
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(iters):
+                flush.fill_(1.0)
+                if with_fn:
+                    fn()
+        graphs.append(graph)
+    for graph in graphs:
+        graph.replay()
+    diffs = []
+    for _ in range(3):
+        times = []
+        for graph in graphs:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        diffs.append((times[0] - times[1]) / iters)
+    del graphs, flush
+    return float(np.median(diffs))
+
+
 def profile_steps(run, steps: int) -> dict:
     """Where a rollout's time goes: the wall per step of `run(steps)` on
     the host clock without the profiler, then the same steps traced with
@@ -206,16 +256,17 @@ def profile_steps(run, steps: int) -> dict:
 
 
 def ptxas_table(log: str) -> list[dict]:
-    """One row per instance of K1 and K3 from nvcc's -Xptxas -v lines:
+    """One row per instance of K1, K3 and K2 from nvcc's -Xptxas -v lines:
     its template arguments, registers, static shared memory and spills."""
     import re
 
     rows, cur = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(packed_double_conv|double_conv)"
-                      r"_kernelI((?:Li\d+E)+)E", line)
+        m = re.search(r"Compiling entry function '\S*?(packed_double_conv|double_conv"
+                      r"|stencil_residual)_kernelI((?:Li\d+E)+)E", line)
         if m:
-            cur = {"kernel": "K3" if m.group(1).startswith("packed") else "K1",
+            cur = {"kernel": {"packed_double_conv": "K3", "double_conv": "K1",
+                              "stencil_residual": "K2"}[m.group(1)],
                    "args": [int(a) for a in re.findall(r"Li(\d+)E", m.group(2))],
                    "spill_stores": 0, "spill_loads": 0, "smem": 0}
             continue
@@ -309,9 +360,9 @@ def stencil_bound(radius: int, b: int, h: int, w: int,
     u (2 planes), k^2, s (2, when given) read once and r (2) written once,
     plus the tap tables ([2r+1, W] and [2r+1, H], re and im); 16 flops per
     tap and point (a complex multiply-add on each axis) and 4 for
-    k^2 u - s, at the f32 CUDA-core peak. K2c computes the same function:
-    the band entries it reads from the cached [W, W] matrices are the
-    tables' values again, so they add nothing to its bound."""
+    k^2 u - s, at the f32 CUDA-core peak. K2c computes the same function
+    (its band matrices hold the tables' values) and launches the same
+    kernel with the tables, so its bound is the same."""
     points = b * h * w
     planes = 2 + 1 + (2 if with_s else 0) + 2
     tables = 2 * (2 * radius + 1) * (h + w)
@@ -385,7 +436,8 @@ def main() -> int:
         f"output: `build_log` of --out)")
     lib = _build.load_library()
     # K1: <TH, TW, warps, CS, CMP, COP>; K3: <TH, TW, CMP, COP, stages>,
-    # whose shared memory is dynamic (hn_packed_double_conv_smem)
+    # whose shared memory is dynamic (hn_packed_double_conv_smem); K2:
+    # <radius, instance> (0 scalar, 1 planes, 2 pairs)
     resources = ptxas_table(built.log)
     for r in resources:
         if r["kernel"] == "K3":
@@ -395,8 +447,8 @@ def main() -> int:
         log(f"phase 2 {r['kernel']} <{', '.join(map(str, r['args']))}>: "
             f"{r['registers']} registers, {r['smem']} B shared memory, spills "
             f"{r['spill_stores']} B stored / {r['spill_loads']} B loaded")
-    if {r["kernel"] for r in resources} != {"K1", "K3"}:
-        fail("the build log names no instance of K1 or of K3")
+    if {r["kernel"] for r in resources} != {"K1", "K3", "K2"}:
+        fail("the build log names no instance of K1, of K3 or of K2")
 
     cfg = Config.from_json_file("experiments/base.json")
     model = dataclasses.replace(cfg.model, precision="default",
@@ -723,6 +775,7 @@ def main() -> int:
     s_re = on_card(rng.standard_normal((b, n, n)))
     s_im = on_card(rng.standard_normal((b, n, n)))
     k2_errs = {k: 0.0 for k in entries}
+    k2_bit_equal = {"K2a": True, "K2b": True}
 
     def k2_check(label, op, key, inputs):
         kernel, plain = entries[key]
@@ -730,8 +783,13 @@ def main() -> int:
         torch.cuda.synchronize()
         err = max((g - r).abs().max().item() for g, r in zip(got, ref))
         ok = all(bool(torch.isfinite(g).all()) for g in got) and err <= K2_ATOL[key]
-        log(f"phase 9 {key} {label}: max|err| {err:.3e} (atol {K2_ATOL[key]}) "
-            f"{'ok' if ok else 'FAIL'}")
+        same = ""
+        if key in k2_bit_equal:  # K2c's plain version sums its x taps otherwise
+            equal = all(torch.equal(g, r) for g, r in zip(got, ref))
+            k2_bit_equal[key] &= equal
+            same = f", bit-equal {equal}"
+        log(f"phase 9 {key} {label} [{sr.stencil_variant(op, *inputs)}]: max|err| "
+            f"{err:.3e} (atol {K2_ATOL[key]}){same} {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"{key} disagrees with its plain version ({label})")
         k2_errs[key] = max(k2_errs[key], err)
@@ -757,8 +815,11 @@ def main() -> int:
     pair_ref = torch.stack(sr.residual_planes_plain(st, ur, ui, k_rand, s_re, s_im), -1)
     torch.cuda.synchronize()
     pair_err = (pair_got - pair_ref).abs().max().item()
-    log(f"phase 9 channel-pair wrapper (stride-2 halves) {n}^2 x {b}: max|err| "
-        f"{pair_err:.3e} (atol {K2_ATOL['K2b']})")
+    pair_variant = sr.stencil_variant(st, u_pair[..., 0], u_pair[..., 1], k_rand,
+                                      s_pair[..., 0], s_pair[..., 1])
+    log(f"phase 9 channel-pair wrapper (stride-2 halves) {n}^2 x {b} "
+        f"[{pair_variant}]: max|err| {pair_err:.3e} (atol {K2_ATOL['K2b']}), "
+        f"bit-equal {torch.equal(pair_got, pair_ref)}")
     if not pair_err <= K2_ATOL["K2b"]:
         fail("the channel-pair wrapper disagrees with the plain version")
     del u_pair, s_pair, pair_got, pair_ref
@@ -781,24 +842,28 @@ def main() -> int:
     if not csr_err <= CSR_ATOL:
         fail("the CSR matrix does not compute the stencil residual")
     del csr512, u_col, s_col
+    variant512 = sr.stencil_variant(st, *k2_args)
     for key, (kernel, plain) in entries.items():
         kernel_ms = cuda_ms(lambda: kernel(st, *k2_args), iters=100)
+        cold_ms = cuda_cold_ms(lambda: kernel(st, *k2_args))
         plain_ms = cuda_ms(lambda: plain(st, *k2_args), iters=20)
         nbytes, flops, bytes_ms, ops_ms = stencil_bound(st.radius, b, n, n, True)
-        row = dict(name=key, ms=kernel_ms, plain_ms=plain_ms,
-                   bound_ms=max(bytes_ms, ops_ms),
+        row = dict(name=key, variant=variant512, ms=kernel_ms, cold_ms=cold_ms,
+                   plain_ms=plain_ms, bound_ms=max(bytes_ms, ops_ms),
                    bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                    bytes_ms=bytes_ms, ops_ms=ops_ms, mbytes=nbytes / 1e6,
-                   gb_per_s=nbytes / kernel_ms / 1e6, max_abs_err=k2_errs[key],
-                   library_ms=library512_ms)
+                   gb_per_s=nbytes / cold_ms / 1e6,
+                   share=max(bytes_ms, ops_ms) / cold_ms, max_abs_err=k2_errs[key],
+                   bit_equal=k2_bit_equal.get(key), library_ms=library512_ms)
         if key == "K2c":  # context: the dense banded x products in f32
             row["banded_matmul_ms"] = cuda_ms(
                 lambda: (ur @ btr - ui @ bti, ur @ bti + ui @ btr), iters=20)
         k2_rows[key] = row
-        log(f"phase 9 {key} {n}^2 x {b}: kernel {kernel_ms:.4f} ms "
-            f"({row['gb_per_s']:.1f} GB/s), plain {plain_ms:.4f} ms, cuSPARSE "
-            f"{library512_ms:.4f} ms, bound "
-            f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes / 1e6:.2f} MB)"
+        log(f"phase 9 {key} {n}^2 x {b} [{variant512}]: kernel warm "
+            f"{kernel_ms:.5f} ms, cold {cold_ms:.5f} ms ({row['gb_per_s']:.1f} "
+            f"GB/s, {row['share']:.3f} of the bound), plain {plain_ms:.4f} ms, "
+            f"cuSPARSE {library512_ms:.4f} ms, bound "
+            f"{row['bound_ms']:.5f} ms ({row['bound_by']}; {nbytes / 1e6:.2f} MB)"
             + (f", dense banded f32 matmuls {row['banded_matmul_ms']:.4f} ms"
                if key == "K2c" else ""))
 
@@ -923,25 +988,38 @@ def main() -> int:
     csr_err = (spmm() - ref.reshape(-1, 1)).abs().max().item()
     nbytes, _, bytes_ms, ops_ms = stencil_bound(st256.radius, b_pack, n_pack,
                                                 n_pack, False)
-    k2a_main = dict(ms=cuda_ms(matvec, iters=100),
+    k2a_main = dict(variant=sr.stencil_variant(st256, pair[..., 0], pair[..., 1],
+                                               k_sq256),
+                    ms=cuda_ms(matvec, iters=100), cold_ms=cuda_cold_ms(matvec),
                     plain_ms=cuda_ms(matvec_plain, iters=20),
                     library_ms=cuda_ms(spmm, iters=20, graph=False),
                     bound_ms=max(bytes_ms, ops_ms),
                     bound_by="bytes" if bytes_ms >= ops_ms else "operations",
                     mbytes=nbytes / 1e6, max_abs_err=main_err,
                     library_max_abs_err=csr_err)
+    k2a_main["share"] = k2a_main["bound_ms"] / k2a_main["cold_ms"]
+    # context: one elementwise PyTorch pass moving the bound's bytes (u and
+    # k^2 read, r written), the floor of any kernel on this call
+    r_pair = torch.empty_like(pair)
+    elementwise = lambda: torch.mul(pair, k_sq256[..., None], out=r_pair)
+    k2a_main["elementwise_ms"] = cuda_ms(elementwise, iters=100)
+    k2a_main["elementwise_cold_ms"] = cuda_cold_ms(elementwise)
     log(f"phase 10 K2a at GMRES's matvec ({b_pack} x {n_pack}^2 complex64, "
-        f"stride 2, no source): max|err| {main_err:.3e} (atol {K2_ATOL['K2a']}); "
-        f"kernel {k2a_main['ms']:.4f} ms "
-        f"({nbytes / k2a_main['ms'] / 1e6:.1f} GB/s), plain "
+        f"stride 2, no source) [{k2a_main['variant']}]: max|err| {main_err:.3e} "
+        f"(atol {K2_ATOL['K2a']}); kernel warm {k2a_main['ms']:.5f} ms, cold "
+        f"{k2a_main['cold_ms']:.5f} ms ({nbytes / k2a_main['cold_ms'] / 1e6:.1f} "
+        f"GB/s, {k2a_main['share']:.3f} of the bound), plain "
         f"{k2a_main['plain_ms']:.4f} ms, cuSPARSE mm {k2a_main['library_ms']:.4f} ms "
         f"(max|err| {csr_err:.3e}, atol {CSR_ATOL}), bound "
-        f"{k2a_main['bound_ms']:.4f} ms ({k2a_main['bound_by']}; {nbytes / 1e6:.2f} MB)")
+        f"{k2a_main['bound_ms']:.5f} ms ({k2a_main['bound_by']}; {nbytes / 1e6:.2f} MB)")
+    log(f"phase 10 an elementwise pass over the same bytes (torch.mul u k^2): "
+        f"warm {k2a_main['elementwise_ms']:.5f} ms, cold "
+        f"{k2a_main['elementwise_cold_ms']:.5f} ms")
     if not (main_err <= K2_ATOL["K2a"] and bool(torch.isfinite(got).all())):
         fail("K2a disagrees with its plain version at GMRES's matvec")
     if not csr_err <= CSR_ATOL:
         fail("the CSR matrix does not compute GMRES's matvec")
-    del u_cx, pair, got, ref, csr256, u_col
+    del u_cx, pair, got, ref, csr256, u_col, r_pair
 
     import scipy.sparse.linalg as spla
 
@@ -1012,11 +1090,13 @@ def main() -> int:
         "replaces": replaces,
         "launches": launches_k2,
         "max_abs_err": row["max_abs_err"],
-        "ms": row["ms"],
+        "ms": row["ms"],  # warm: repeated calls, inputs in L2 where they fit
+        "cold_ms": row["cold_ms"],  # the L2 overwritten before every call
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],  # cuSPARSE on the complex64 CSR
+        "variant": row["variant"],  # the kernel's instance
     } for name, replaces, launches_k2, row in (
         # per call on each kernel's main path: K2a at GMRES's matvec
         # (16 x 256^2 complex64, no source), K2b and K2c at 512^2 x 8

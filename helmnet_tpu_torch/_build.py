@@ -46,11 +46,8 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #                       tile, stream)
 # hn_packed_double_conv_smem(tile, cmp, cop)
 # hn_stencil_residual(ur, ui, ubs, uxs, k2, kbs, sr, si, sbs, sxs, rr, ri,
-#                     rbs, rxs, cxr, cxi, cyr, cyi, B, H, W, radius, stream)
-# hn_stencil_residual_mma: the same, with the banded matrices btr, bti in
-#                     place of cxr, cxi
-_STENCIL = [_P, _P, _L, _I, _P, _L, _P, _P, _L, _I, _P, _P, _L, _I,
-            _P, _P, _P, _P, _I, _I, _I, _I, _P]
+#                     rbs, rxs, cxr, cxi, cyr, cyi, B, H, W, radius, mode,
+#                     stream)
 _SIGNATURES = {
     "hn_double_conv": [_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P,
                        _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
@@ -58,8 +55,8 @@ _SIGNATURES = {
                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _P],
     "hn_packed_double_conv_smem": [_I, _I, _I],
-    "hn_stencil_residual": _STENCIL,
-    "hn_stencil_residual_mma": _STENCIL,
+    "hn_stencil_residual": [_P, _P, _L, _I, _P, _L, _P, _P, _L, _I, _P, _P,
+                            _L, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 

@@ -7,59 +7,82 @@
 // and 4). Fields are [B, H, W] planes of f32; the coefficient tables are
 // [2R+1, W] (x taps) and [2R+1, H] (y taps), split re/im.
 //
-// Two kernels compute this one function:
+// One kernel, stencil_residual_kernel, replaces the three TPU kernels of
+// helmnet_tpu/ops/pallas_stencil.py: :212 (residual_planes, K2a: a whole
+// plane per grid step), :161 (residual_planes_tiled, K2b: row tiles with
+// a halo brought in by DMA) and :452 (residual_planes_mxu, K2c: the x taps
+// as a banded [W, W] product on the MXU). The TPU split K2a and K2b for its
+// VMEM budget, which does not exist here. It put K2c's x taps on the MXU
+// because lane shifts are dear on its vector unit; on this card a shifted
+// read from shared memory is cheap, and the band product would spend the
+// tensor cores on 2R+1 nonzeros of every [W] column. The function is bound
+// by bytes: per point it reads u (2 floats), k2 and s (2) and writes r (2),
+// 28 bytes against about 84 flops. So K2c's entry point launches this
+// kernel with the tap tables, the values its band matrices hold.
 //
-// 1. stencil_residual_kernel replaces the TPU kernels
-//    helmnet_tpu/ops/pallas_stencil.py:212 (residual_planes, K2a: a whole
-//    plane per grid step) and :161 (residual_planes_tiled, K2b: row tiles
-//    with an 8-row halo brought in by DMA). The TPU split them for its VMEM
-//    budget, which does not exist here. One block takes a 32 x 32 output
-//    tile and stages the u tile with an R-cell periodic halo on both axes
-//    (wrap indices mod H and W, so any H, W >= 1 goes; ragged edge tiles
-//    are masked) and its slices of the tap tables in shared memory. k2 and
-//    s are read once, coalesced, without staging; r is written once.
-//    Bound: bytes. Per point it reads u (2 planes), k2 and s (2) and writes
-//    r (2): 28 bytes against about 84 flops, far below the card's
-//    operations-per-byte line. The design therefore spends nothing on the
-//    arithmetic: the taps run on the CUDA cores, each product and sum
-//    rounded on its own (__fmul_rn, __fadd_rn, no FMA contraction) in the
-//    order of the plain version (ops/stencil_residual.residual_planes_plain),
-//    so the two agree to the bit; the halo rows and columns are re-read from
-//    L2, not from device memory. TMA and pipelining are later work.
+// Instances (template MODE), chosen by the wrapper before the launch
+// (ops/stencil_residual.stencil_variant) from shapes, strides and the
+// alignment of every pointer; a launch whose operands do not fit its
+// instance is refused, never redirected:
 //
-// 2. stencil_residual_mma_kernel replaces helmnet_tpu/ops/pallas_stencil.py
-//    :452 (residual_planes_mxu, K2c), whose x taps are a banded [W, W]
-//    matmul on the MXU. Here the x taps are a product with the same banded
-//    matrices (ops/stencil_residual.banded_matrices, cached on the operator)
-//    on the tensor cores, mma.sync m16n8k8 TF32, restricted to the band:
-//    output columns [c0, c0+8) need input columns [c0-R, c0+8+R), which sit
-//    in the 16-column window [c0-4, c0+12) (two k8 steps, not W/8). Only
-//    the band's entries of that window are read; the rest are zeros. The
-//    products use the 3xTF32 split (a = a_hi + a_lo; a_hi b_hi + a_hi b_lo
-//    + a_lo b_hi summed in f32), about 1e-6 relative, inside K2c's atol
-//    2e-4 (tests/test_pallas_stencil.py:116), where plain TF32 (11 bits)
-//    would err by about 1e-2. The y taps, k2 u - s and the store run on the
-//    CUDA cores as in `_residual_kernel_mxu`. Bound: bytes, as above; the
-//    band products, 3 x 4 x 2 x 2 mma per 16 x 8 outputs, are about 0.8
-//    GFLOP at 512^2 x 8, a few microseconds at the TF32 rate. The band
-//    picks each tap once only when W >= 2R + 1 (the wrapper refuses less).
+// - PLANES: split planes (element stride 1), W % 4 == 0, every plane
+//   16-byte aligned. A thread owns 4 adjacent points; u, s, r move as
+//   float4 per plane, k2 as float4.
+// - PAIRS: re and im interleaved in one buffer (view_as_real of complex64,
+//   or the channel-pair wrapper's [B, H, W, 2]) for u, s and r, W even;
+//   u, s, r 16-byte aligned, k2 8-byte aligned. A thread owns 2 adjacent
+//   points; one float4 moves (re, im, re, im) of both, k2 moves as float2.
+//   Only the re pointers are read: the im pointer is base + 4 bytes.
+// - SCALAR: anything else (ragged widths such as 33, misaligned views, a
+//   plane narrower than the halo); 4-byte accesses, one point a thread.
+//
+// Staging: the block's u tile with its halo (R rows above and below; one
+// 16-byte chunk left and right in the vector instances, so every copy is
+// aligned; R points in the scalar one) goes to shared memory by cp.async
+// (16-byte .cg copies, 4-byte in the scalar instance), in NY parts of TY
+// rows, each with its own commit group. Each thread owns one row of each
+// part. Part j+1's copies, and its k2 and s into registers, are started
+// before part j is waited for, so one part is in flight while another is
+// computed: the taps from shared memory after one wait and one barrier a
+// part, and vector stores. (Starting all of a tile's copies before the
+// first wait measured slower, tools/k2_variants.py AHEAD=4: the warps sat
+// in their long copy queues, and the taps, 84 separately rounded flops a
+// point, hardly overlapped the memory.) A block is 256 threads on 32 rows
+// (4 parts of 8) by 32 V points: 512 blocks, about 4 an SM, at GMRES's
+// matvec (16 x 256^2, PAIRS) and at 512^2 x 8 (PLANES). The
+// tap tables' slices go to shared memory by plain loads while the first
+// part flies. Interior tiles index straight; edge tiles wrap each chunk
+// with one conditional add, which is exact because W is a multiple of the
+// chunk and H >= R there (the wrapper picks SCALAR otherwise, whose wrap()
+// takes any period).
+//
+// Bit-equality: every product and sum is rounded on its own (__fmul_rn,
+// __fadd_rn, __fsub_rn; no FMA contraction) in the order of the plain
+// version (ops/stencil_residual.residual_planes_plain): k2 u - s, then per
+// tap the x and the y term. Vector accesses change no point's arithmetic,
+// so all instances agree with the plain version to the bit, and K2c with
+// its banded plain version to about 1e-6 (the x taps summed in another
+// order), inside its atol 2e-4 (tests/test_pallas_stencil.py:116).
 //
 // Each plane is a pointer, a batch stride and an element stride (1 for a
 // split plane, 2 for one half of a channel pair or of a complex64 tensor
 // viewed as real pairs): element (b, y, x) is at p[b * bs + (y * W + x) * es].
-// So the channel-pair wrapper and GMRES's complex matvec launch without any
-// split or stack copy. A null s means zero and is not read. A k2 batch
-// stride of 0 broadcasts one k2 plane over the batch.
+// A null s means zero and is not read. A k2 batch stride of 0 broadcasts
+// one k2 plane over the batch.
 //
-// Plain C entry points, bound from Python with ctypes
-// (ops/stencil_residual.py). They launch on the caller's stream, do not
-// synchronise, allocate nothing, and return cudaGetLastError().
+// Plain C entry point, bound from Python with ctypes
+// (ops/stencil_residual.py). It launches on the caller's stream, does not
+// synchronise, allocates nothing, and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
 namespace {
+
+constexpr int kScalar = 0;
+constexpr int kPlanes = 1;
+constexpr int kPairs = 2;
 
 struct Planes {
   const float* ur;
@@ -78,9 +101,57 @@ struct Planes {
   int rxs;
 };
 
+// Tile of one block: TX x TY threads, each owning V adjacent points in x
+// on NY rows, one in each of the tile's NY parts of TY rows.
+template <int MODE>
+struct Tile {
+  static constexpr int V = MODE == kPlanes ? 4 : MODE == kPairs ? 2 : 1;
+  static constexpr int NY = 4;
+  static constexpr int AHEAD = 1;  // parts staged ahead of the one computed
+  static constexpr int TX = 32;
+  static constexpr int TY = 8;
+  static constexpr int THREADS = TX * TY;
+  static constexpr int TH = TY * NY;  // tile rows
+  static constexpr int TW = TX * V;   // tile columns (points)
+};
+
 __device__ __forceinline__ int wrap(int i, int n) {
   i %= n;
   return i < 0 ? i + n : i;
+}
+
+// one periodic step: i in [-n, 2n)
+__device__ __forceinline__ int wrap1(int i, int n) {
+  return i + (i < 0 ? n : (i >= n ? -n : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most n of this thread's groups are in flight (n < 8; a
+// constant once the caller's loop is unrolled)
+__device__ __forceinline__ void cp_async_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    case 3: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+    case 4: asm volatile("cp.async.wait_group 4;\n" ::: "memory"); break;
+    case 5: asm volatile("cp.async.wait_group 5;\n" ::: "memory"); break;
+    case 6: asm volatile("cp.async.wait_group 6;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 7;\n" ::: "memory"); break;
+  }
 }
 
 // acc + c * v, each step rounded on its own (what the plain version does)
@@ -99,246 +170,292 @@ __device__ __forceinline__ void cmac(float& ar, float& ai, float cr, float ci,
   ai = add_mul(add_mul(ai, cr, vi), ci, vr);
 }
 
-// k2 u - s at one pixel (s may be null)
-__device__ __forceinline__ void diag_term(const Planes& p, int b, long long pix,
-                                          float vr, float vi, float& ar,
-                                          float& ai) {
-  const float k = p.k2[b * p.kbs + pix];
-  ar = __fmul_rn(k, vr);
-  ai = __fmul_rn(k, vi);
-  if (p.sr != nullptr) {
-    const long long o = b * p.sbs + pix * p.sxs;
-    ar = __fsub_rn(ar, p.sr[o]);
-    ai = __fsub_rn(ai, p.si[o]);
+// Shared-memory layout of a block's u tile: SH rows of SW points, R rows
+// and HX points of halo around TH x TW. PLANES, SCALAR: the re plane, then
+// the im plane; PAIRS: one plane of (re, im) pairs.
+template <int R, int MODE>
+struct Staged {
+  using T = Tile<MODE>;
+  static constexpr bool VEC = MODE != kScalar;
+  static constexpr int HX = VEC ? T::V : R;  // halo points each side
+  static constexpr int SH = T::TH + 2 * R;
+  static constexpr int SW = T::TW + 2 * HX;
+  static constexpr int FLOATS = 2 * SH * SW;
+};
+
+// cp.async of staged rows [r0, r1) of the tile at (x0, y0) of plane b:
+// whole 16-byte chunks in the vector instances, floats in the scalar one.
+// Interior tiles index straight; edge tiles wrap, and skip what no output
+// of the plane reads.
+template <int R, int MODE>
+__device__ __forceinline__ void stage_rows(float* s_u, const Planes& p,
+                                           const float* ur, const float* ui,
+                                           int r0, int r1, int x0, int y0,
+                                           bool interior, int H, int W) {
+  using S = Staged<R, MODE>;
+  constexpr int SH = S::SH, SW = S::SW, HX = S::HX;
+  const int tid = threadIdx.x;
+  if constexpr (S::VEC) {
+    constexpr int CH = MODE == kPairs ? 2 : 4;  // points a 16-byte chunk
+    constexpr int NCH = SW / CH;                // chunks a staged row
+    constexpr int NP = MODE == kPlanes ? 2 : 1;  // planes staged
+    const int n = (r1 - r0) * NCH;
+    for (int i = tid; i < NP * n; i += Tile<MODE>::THREADS) {
+      const int pl = NP == 1 ? 0 : i / n;
+      const int rem = i - pl * n;
+      const int ly = r0 + rem / NCH, c = rem % NCH;
+      int gy = y0 + ly - R, gx = x0 + c * CH - HX;
+      if (!interior) {
+        if (gy >= H + R || gx >= W + HX) continue;
+        gy = wrap1(gy, H);
+        gx = wrap1(gx, W);
+      }
+      const long long pix = (long long)gy * W + gx;
+      if constexpr (MODE == kPlanes) {
+        cp_async16(s_u + pl * SH * SW + ly * SW + c * CH, (pl ? ui : ur) + pix);
+      } else {
+        cp_async16(s_u + 2 * (ly * SW + c * CH), ur + 2 * pix);
+      }
+    }
+  } else {
+    for (int i = tid; i < (r1 - r0) * SW; i += Tile<MODE>::THREADS) {
+      const int ly = r0 + i / SW, lx = i % SW;
+      int gy = y0 + ly - R, gx = x0 + lx - R;
+      if (!interior) {
+        if (gy >= H + R || gx >= W + R) continue;
+        gy = wrap(gy, H);
+        gx = wrap(gx, W);
+      }
+      const long long o = ((long long)gy * W + gx) * p.uxs;
+      cp_async4(s_u + ly * SW + lx, ur + o);
+      cp_async4(s_u + SH * SW + ly * SW + lx, ui + o);
+    }
   }
 }
 
-// ---------------------------------------------------------------------------
-// 1. CUDA-core stencil (K2a, K2b)
-// ---------------------------------------------------------------------------
-
-constexpr int TW = 32;              // tile columns: one warp across
-constexpr int TH = 32;              // tile rows
-constexpr int TY = 8;               // thread rows; each thread does TH / TY rows
-constexpr int THREADS = TW * TY;
-
-template <int R>
-__global__ void __launch_bounds__(THREADS)
+template <int R, int MODE>
+__global__ void __launch_bounds__(Tile<MODE>::THREADS)
 stencil_residual_kernel(Planes p, const float* __restrict__ cxr,
                         const float* __restrict__ cxi,
                         const float* __restrict__ cyr,
                         const float* __restrict__ cyi, int H, int W) {
+  using T = Tile<MODE>;
+  using S = Staged<R, MODE>;
+  constexpr int V = T::V, NY = T::NY, TY = T::TY, TH = T::TH, TW = T::TW;
   constexpr int NT = 2 * R + 1;
-  constexpr int SW = TW + 2 * R;
-  constexpr int SH = TH + 2 * R;
-  __shared__ float s_ur[SH][SW];
-  __shared__ float s_ui[SH][SW];
-  __shared__ float s_cx[2][NT][TW];
+  constexpr int SH = S::SH, SW = S::SW;
+  __shared__ __align__(16) float s_u[S::FLOATS];
+  __shared__ __align__(16) float s_cx[2][NT][TW];
   __shared__ float s_cy[2][NT][TH];
 
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int tid = ty * TW + tx;
-  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH, b = blockIdx.z;
-  const float* ur = p.ur + b * p.ubs;
-  const float* ui = p.ui + b * p.ubs;
-
-  for (int i = tid; i < SH * SW; i += THREADS) {
-    const int ly = i / SW, lx = i - ly * SW;
-    const int gy = wrap(y0 + ly - R, H), gx = wrap(x0 + lx - R, W);
-    const long long o = ((long long)gy * W + gx) * p.uxs;
-    s_ur[ly][lx] = ur[o];
-    s_ui[ly][lx] = ui[o];
-  }
-  for (int i = tid; i < NT * TW; i += THREADS) {
-    const int t = i / TW, lx = i - t * TW;
-    const int gx = min(x0 + lx, W - 1);
-    s_cx[0][t][lx] = cxr[t * W + gx];
-    s_cx[1][t][lx] = cxi[t * W + gx];
-  }
-  for (int i = tid; i < NT * TH; i += THREADS) {
-    const int t = i / TH, ly = i - t * TH;
-    const int gy = min(y0 + ly, H - 1);
-    s_cy[0][t][ly] = cyr[t * H + gy];
-    s_cy[1][t][ly] = cyi[t * H + gy];
-  }
-  __syncthreads();
-
-  const int gx = x0 + tx;
-  if (gx >= W) return;
-#pragma unroll
-  for (int k = 0; k < TH / TY; ++k) {
-    const int ly = ty + k * TY;
-    const int gy = y0 + ly;
-    if (gy >= H) break;
-    const long long pix = (long long)gy * W + gx;
-    float ar, ai;
-    diag_term(p, b, pix, s_ur[ly + R][tx + R], s_ui[ly + R][tx + R], ar, ai);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      // x tap: column x + t - R; y tap: row y + t - R
-      cmac(ar, ai, s_cx[0][t][tx], s_cx[1][t][tx], s_ur[ly + R][tx + t],
-           s_ui[ly + R][tx + t]);
-      cmac(ar, ai, s_cy[0][t][ly], s_cy[1][t][ly], s_ur[ly + t][tx + R],
-           s_ui[ly + t][tx + R]);
-    }
-    const long long o = b * p.rbs + pix * p.rxs;
-    p.rr[o] = ar;
-    p.ri[o] = ai;
-  }
-}
-
-// ---------------------------------------------------------------------------
-// 2. Tensor-core x taps on the band (K2c)
-// ---------------------------------------------------------------------------
-
-constexpr int MT = 32;            // tile rows: two m16 tiles
-constexpr int MW = 32;            // tile columns: four n8 tiles
-constexpr int MWIN = 4;           // window columns left of c0 (R <= 4)
-constexpr int MSW = MW + 2 * MWIN;  // staged columns [c0 - 4, c0 + 36)
-constexpr int MSWP = MSW + 4;     // row stride 44: conflict-free A loads
-constexpr int MWARPS = (MT / 16) * (MW / 8);
-constexpr int MTHREADS = 32 * MWARPS;
-
-__device__ __forceinline__ uint32_t tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(v));
-  return r;
-}
-
-// v = hi + lo, both TF32
-__device__ __forceinline__ void split(float v, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(v);
-  lo = tf32(v - __uint_as_float(hi));
-}
-
-// Fragments (PTX ISA, mma.m16n8k8 .tf32), g = lane / 4, t = lane % 4:
-// A[16x8]: a0 (g, t), a1 (g+8, t), a2 (g, t+4), a3 (g+8, t+4);
-// B[8x8]: b0 (t, g), b1 (t+4, g);
-// C[16x8]: c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t), c3 (g+8, 2t+1).
-__device__ __forceinline__ void mma1688(float (&d)[4], const uint32_t (&a)[4],
-                                        uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// d += A B in 3xTF32: the small cross terms first, then hi x hi
-__device__ __forceinline__ void mma3(float (&d)[4], const uint32_t (&ahi)[4],
-                                     const uint32_t (&alo)[4], uint32_t bhi0,
-                                     uint32_t bhi1, uint32_t blo0,
-                                     uint32_t blo1) {
-  mma1688(d, alo, bhi0, bhi1);
-  mma1688(d, ahi, blo0, blo1);
-  mma1688(d, ahi, bhi0, bhi1);
-}
-
-template <int R>
-__global__ void __launch_bounds__(MTHREADS)
-stencil_residual_mma_kernel(Planes p, const float* __restrict__ btr,
-                            const float* __restrict__ bti,
-                            const float* __restrict__ cyr,
-                            const float* __restrict__ cyi, int H, int W) {
-  constexpr int NT = 2 * R + 1;
-  constexpr int SH = MT + 2 * R;
-  __shared__ float s_ur[SH][MSWP];
-  __shared__ float s_ui[SH][MSWP];
-  __shared__ float s_cy[2][NT][MT];
-
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int c0 = blockIdx.x * MW, y0 = blockIdx.y * MT, b = blockIdx.z;
+  const int tx = tid % T::TX, ty = tid / T::TX;
+  const int x0 = blockIdx.x * TW, y0 = blockIdx.y * TH, b = blockIdx.z;
+  const bool interior =
+      x0 >= S::HX && x0 + TW + S::HX <= W && y0 >= R && y0 + TH + R <= H;
   const float* ur = p.ur + b * p.ubs;
   const float* ui = p.ui + b * p.ubs;
 
-  // rows [y0 - R, y0 + MT + R), columns [c0 - 4, c0 + MW + 4), wrapped
-  for (int i = tid; i < SH * MSW; i += MTHREADS) {
-    const int ly = i / MSW, lx = i - ly * MSW;
-    const int gy = wrap(y0 + ly - R, H), gx = wrap(c0 + lx - MWIN, W);
-    const long long o = ((long long)gy * W + gx) * p.uxs;
-    s_ur[ly][lx] = ur[o];
-    s_ui[ly][lx] = ui[o];
-  }
-  for (int i = tid; i < NT * MT; i += MTHREADS) {
-    const int tt = i / MT, ly = i - tt * MT;
-    const int gy = min(y0 + ly, H - 1);
-    s_cy[0][tt][ly] = cyr[tt * H + gy];
-    s_cy[1][tt][ly] = cyi[tt * H + gy];
-  }
-
-  // this warp's 16 x 8 output tile: rows m0.., local columns n0..
-  const int m0 = (warp / (MW / 8)) * 16;
-  const int n0 = (warp % (MW / 8)) * 8;
-  // B fragments of the band: B[k][n] = Bt[(c0 + n0 - 4 + k) mod W, c0 + n0 + n]
-  // where the tap offset k - 4 - n lies in [-R, R], else 0.
-  uint32_t brh[2][2], brl[2][2], bih[2][2], bil[2][2], nih[2][2], nil[2][2];
-  {
-    const int c = c0 + n0 + g;
-#pragma unroll
-    for (int ks = 0; ks < 2; ++ks) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = ks * 8 + t + 4 * h;
-        const int off = k - MWIN - g;
-        float vr = 0.f, vi = 0.f;
-        if (c < W && off >= -R && off <= R) {
-          const long long j = wrap(c + off, W);
-          vr = btr[j * W + c];
-          vi = bti[j * W + c];
-        }
-        split(vr, brh[ks][h], brl[ks][h]);
-        split(vi, bih[ks][h], bil[ks][h]);
-        split(-vi, nih[ks][h], nil[ks][h]);
+  // 1. the u tile, by cp.async, part by part: part j (output rows
+  // [j TY, (j+1) TY)) needs staged rows [j TY, (j+1) TY + 2R), so group 0
+  // holds rows [0, TY + 2R) and group j the TY rows after group j-1. Up
+  // to AHEAD parts are in flight while one is computed; each thread's k2
+  // and s of a part go to registers when its rows are staged.
+  const int gx = x0 + tx * V;
+  const bool has_s = p.sr != nullptr;
+  float kv[NY][V] = {}, svr[NY][V] = {}, svi[NY][V] = {};
+  auto stage_part = [&](int j) {
+    stage_rows<R, MODE>(s_u, p, ur, ui, j == 0 ? 0 : j * TY + 2 * R,
+                        (j + 1) * TY + 2 * R, x0, y0, interior, H, W);
+    cp_async_commit();
+    const int gy = y0 + j * TY + ty;
+    if (gx >= W || gy >= H) return;
+    const long long pix = (long long)gy * W + gx;
+    const float* k2 = p.k2 + b * p.kbs + pix;
+    if constexpr (MODE == kPlanes) {
+      const float4 k = __ldg(reinterpret_cast<const float4*>(k2));
+      kv[j][0] = k.x, kv[j][1] = k.y, kv[j][2] = k.z, kv[j][3] = k.w;
+      if (has_s) {
+        const long long o = b * p.sbs + pix;
+        const float4 a = __ldg(reinterpret_cast<const float4*>(p.sr + o));
+        const float4 c = __ldg(reinterpret_cast<const float4*>(p.si + o));
+        svr[j][0] = a.x, svr[j][1] = a.y, svr[j][2] = a.z, svr[j][3] = a.w;
+        svi[j][0] = c.x, svi[j][1] = c.y, svi[j][2] = c.z, svi[j][3] = c.w;
+      }
+    } else if constexpr (MODE == kPairs) {
+      const float2 k = __ldg(reinterpret_cast<const float2*>(k2));
+      kv[j][0] = k.x, kv[j][1] = k.y;
+      if (has_s) {
+        const float4 a =
+            __ldg(reinterpret_cast<const float4*>(p.sr + b * p.sbs + 2 * pix));
+        svr[j][0] = a.x, svi[j][0] = a.y, svr[j][1] = a.z, svi[j][1] = a.w;
+      }
+    } else {
+      kv[j][0] = __ldg(k2);
+      if (has_s) {
+        const long long o = b * p.sbs + pix * p.sxs;
+        svr[j][0] = __ldg(p.sr + o);
+        svi[j][0] = __ldg(p.si + o);
       }
     }
-  }
-  __syncthreads();
-
-  // X = U Bt on the window: Xr = Ur Btr - Ui Bti, Xi = Ur Bti + Ui Btr
-  float xr[4] = {0.f, 0.f, 0.f, 0.f}, xi[4] = {0.f, 0.f, 0.f, 0.f};
+  };
+  constexpr int AHEAD = T::AHEAD < NY ? T::AHEAD : NY;
 #pragma unroll
-  for (int ks = 0; ks < 2; ++ks) {
-    const int col = n0 + ks * 8 + t;
-    const int row = R + m0 + g;
-    uint32_t rh[4], rl[4], ih[4], il[4];
-    split(s_ur[row][col], rh[0], rl[0]);
-    split(s_ur[row + 8][col], rh[1], rl[1]);
-    split(s_ur[row][col + 4], rh[2], rl[2]);
-    split(s_ur[row + 8][col + 4], rh[3], rl[3]);
-    split(s_ui[row][col], ih[0], il[0]);
-    split(s_ui[row + 8][col], ih[1], il[1]);
-    split(s_ui[row][col + 4], ih[2], il[2]);
-    split(s_ui[row + 8][col + 4], ih[3], il[3]);
-    mma3(xr, rh, rl, brh[ks][0], brh[ks][1], brl[ks][0], brl[ks][1]);
-    mma3(xr, ih, il, nih[ks][0], nih[ks][1], nil[ks][0], nil[ks][1]);
-    mma3(xi, rh, rl, bih[ks][0], bih[ks][1], bil[ks][0], bil[ks][1]);
-    mma3(xi, ih, il, brh[ks][0], brh[ks][1], brl[ks][0], brl[ks][1]);
+  for (int j = 0; j < AHEAD; ++j) stage_part(j);
+
+  // 2. the tap tables' slices into shared memory
+  for (int i = tid; i < NT * TW; i += T::THREADS) {
+    const int t = i / TW, lx = i - t * TW;
+    const int c = min(x0 + lx, W - 1);
+    s_cx[0][t][lx] = __ldg(cxr + t * W + c);
+    s_cx[1][t][lx] = __ldg(cxi + t * W + c);
+  }
+  for (int i = tid; i < NT * TH; i += T::THREADS) {
+    const int t = i / TH, ly = i - t * TH;
+    const int c = min(y0 + ly, H - 1);
+    s_cy[0][t][ly] = __ldg(cyr + t * H + c);
+    s_cy[1][t][ly] = __ldg(cyi + t * H + c);
   }
 
-  // epilogue on the CUDA cores, in `_residual_kernel_mxu`'s order:
-  // acc = X + k2 u - s, then the y taps
+  // 3. part by part, as its rows land: the taps from shared memory
+  constexpr int WL = S::VEC ? 3 * V : NT;  // window of a row for the x taps
+  constexpr int WO = S::VEC ? V : R;       // the thread's first point in it
+  const int col = S::HX + tx * V;          // staged column of that point
 #pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const int ly = m0 + g + 8 * (e >> 1);
-    const int lx = n0 + 2 * t + (e & 1);
-    const int gy = y0 + ly, gx = c0 + lx;
-    if (gy >= H || gx >= W) continue;
-    const long long pix = (long long)gy * W + gx;
-    const float vr = s_ur[ly + R][lx + MWIN], vi = s_ui[ly + R][lx + MWIN];
-    float dr, di;
-    diag_term(p, b, pix, vr, vi, dr, di);
-    float ar = __fadd_rn(xr[e], dr), ai = __fadd_rn(xi[e], di);
+  for (int j = 0; j < NY; ++j) {
+    if (j + AHEAD < NY) stage_part(j + AHEAD);
+    // groups committed: min(j + 1 + AHEAD, NY); part j's is complete when at
+    // most the later ones are pending
+    cp_async_wait((j + 1 + AHEAD < NY ? j + 1 + AHEAD : NY) - (j + 1));
+    __syncthreads();
+    const int ly = j * TY + ty;
+    const int gy = y0 + ly;
+    if (gx >= W || gy >= H) continue;
+    const int row = ly + R;
+    float wr[WL], wi[WL];
+    if constexpr (MODE == kPlanes) {
 #pragma unroll
-    for (int tt = 0; tt < NT; ++tt) {
-      cmac(ar, ai, s_cy[0][tt][ly], s_cy[1][tt][ly], s_ur[ly + tt][lx + MWIN],
-           s_ui[ly + tt][lx + MWIN]);
+      for (int c = 0; c < 3; ++c) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(s_u + row * SW + col - V + c * V);
+        const float4 d = *reinterpret_cast<const float4*>(
+            s_u + SH * SW + row * SW + col - V + c * V);
+        wr[4 * c] = a.x, wr[4 * c + 1] = a.y, wr[4 * c + 2] = a.z, wr[4 * c + 3] = a.w;
+        wi[4 * c] = d.x, wi[4 * c + 1] = d.y, wi[4 * c + 2] = d.z, wi[4 * c + 3] = d.w;
+      }
+    } else if constexpr (MODE == kPairs) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(s_u + 2 * (row * SW + col - V + c * V));
+        wr[2 * c] = a.x, wi[2 * c] = a.y, wr[2 * c + 1] = a.z, wi[2 * c + 1] = a.w;
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        wr[c] = s_u[row * SW + col - R + c];
+        wi[c] = s_u[SH * SW + row * SW + col - R + c];
+      }
     }
-    const long long o = b * p.rbs + pix * p.rxs;
-    p.rr[o] = ar;
-    p.ri[o] = ai;
+
+    float ar[V], ai[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      ar[v] = __fmul_rn(kv[j][v], wr[WO + v]);
+      ai[v] = __fmul_rn(kv[j][v], wi[WO + v]);
+      if (has_s) {
+        ar[v] = __fsub_rn(ar[v], svr[j][v]);
+        ai[v] = __fsub_rn(ai[v], svi[j][v]);
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < NT; ++t) {
+      // x tap: column x + t - R
+      float cr[V], ci[V];
+      if constexpr (MODE == kPlanes) {
+        const float4 a = *reinterpret_cast<const float4*>(&s_cx[0][t][tx * V]);
+        const float4 d = *reinterpret_cast<const float4*>(&s_cx[1][t][tx * V]);
+        cr[0] = a.x, cr[1] = a.y, cr[2] = a.z, cr[3] = a.w;
+        ci[0] = d.x, ci[1] = d.y, ci[2] = d.z, ci[3] = d.w;
+      } else if constexpr (MODE == kPairs) {
+        const float2 a = *reinterpret_cast<const float2*>(&s_cx[0][t][tx * V]);
+        const float2 d = *reinterpret_cast<const float2*>(&s_cx[1][t][tx * V]);
+        cr[0] = a.x, cr[1] = a.y;
+        ci[0] = d.x, ci[1] = d.y;
+      } else {
+        cr[0] = s_cx[0][t][tx];
+        ci[0] = s_cx[1][t][tx];
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        cmac(ar[v], ai[v], cr[v], ci[v], wr[WO + v + t - R], wi[WO + v + t - R]);
+      }
+      // y tap: row y + t - R
+      float vr[V], vi[V];
+      if (t == R) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) vr[v] = wr[WO + v], vi[v] = wi[WO + v];
+      } else if constexpr (MODE == kPlanes) {
+        const float4 a = *reinterpret_cast<const float4*>(s_u + (ly + t) * SW + col);
+        const float4 d =
+            *reinterpret_cast<const float4*>(s_u + SH * SW + (ly + t) * SW + col);
+        vr[0] = a.x, vr[1] = a.y, vr[2] = a.z, vr[3] = a.w;
+        vi[0] = d.x, vi[1] = d.y, vi[2] = d.z, vi[3] = d.w;
+      } else if constexpr (MODE == kPairs) {
+        const float4 a =
+            *reinterpret_cast<const float4*>(s_u + 2 * ((ly + t) * SW + col));
+        vr[0] = a.x, vi[0] = a.y, vr[1] = a.z, vi[1] = a.w;
+      } else {
+        vr[0] = s_u[(ly + t) * SW + col];
+        vi[0] = s_u[SH * SW + (ly + t) * SW + col];
+      }
+      const float yr = s_cy[0][t][ly], yi = s_cy[1][t][ly];
+#pragma unroll
+      for (int v = 0; v < V; ++v) cmac(ar[v], ai[v], yr, yi, vr[v], vi[v]);
+    }
+
+    const long long pix = (long long)gy * W + gx;
+    if constexpr (MODE == kPlanes) {
+      const long long o = b * p.rbs + pix;
+      *reinterpret_cast<float4*>(p.rr + o) = make_float4(ar[0], ar[1], ar[2], ar[3]);
+      *reinterpret_cast<float4*>(p.ri + o) = make_float4(ai[0], ai[1], ai[2], ai[3]);
+    } else if constexpr (MODE == kPairs) {
+      *reinterpret_cast<float4*>(p.rr + b * p.rbs + 2 * pix) =
+          make_float4(ar[0], ai[0], ar[1], ai[1]);
+    } else {
+      const long long o = b * p.rbs + pix * p.rxs;
+      p.rr[o] = ar[0];
+      p.ri[o] = ai[0];
+    }
   }
+}
+
+bool aligned(const void* ptr, int bytes) {
+  return reinterpret_cast<uintptr_t>(ptr) % bytes == 0;
+}
+
+// Whether the operands fit the instance the wrapper chose (it checks the
+// same; this refuses a launch that would read out of line).
+bool fits(const Planes& p, int mode, int H, int W, int radius) {
+  const bool s = p.sr != nullptr;
+  if (mode == kScalar) return true;
+  if (H < radius) return false;
+  if (mode == kPlanes) {
+    return W % 4 == 0 && p.uxs == 1 && p.rxs == 1 && (!s || p.sxs == 1) &&
+           aligned(p.ur, 16) && aligned(p.ui, 16) && aligned(p.k2, 16) &&
+           aligned(p.rr, 16) && aligned(p.ri, 16) &&
+           (!s || (aligned(p.sr, 16) && aligned(p.si, 16) && p.sbs % 4 == 0)) &&
+           p.ubs % 4 == 0 && p.kbs % 4 == 0 && p.rbs % 4 == 0;
+  }
+  if (mode == kPairs) {
+    return W % 2 == 0 && p.uxs == 2 && p.rxs == 2 && p.ui == p.ur + 1 &&
+           p.ri == p.rr + 1 &&
+           (!s || (p.sxs == 2 && p.si == p.sr + 1 && aligned(p.sr, 16) &&
+                   p.sbs % 4 == 0)) &&
+           aligned(p.ur, 16) && aligned(p.rr, 16) && aligned(p.k2, 8) &&
+           p.ubs % 4 == 0 && p.kbs % 2 == 0 && p.rbs % 4 == 0;
+  }
+  return false;
 }
 
 bool valid(const Planes& p, int B, int H, int W, int radius) {
@@ -348,80 +465,56 @@ bool valid(const Planes& p, int B, int H, int W, int radius) {
                        p.ubs >= 0 && p.kbs >= 0 && p.sbs >= 0 && p.rbs >= 0;
   return p.ur != nullptr && p.ui != nullptr && p.k2 != nullptr &&
          p.rr != nullptr && p.ri != nullptr && s_ok && strides &&
-         (radius == 1 || radius == 2) && B > 0 && B <= 65535 && H > 0 && W > 0 &&
-         (H + 31) / 32 <= 65535;
+         (radius == 1 || radius == 2) && B > 0 && B <= 65535 && H > 0 && W > 0;
 }
 
-Planes planes(const float* ur, const float* ui, long long ubs, int uxs,
-              const float* k2, long long kbs, const float* sr, const float* si,
-              long long sbs, int sxs, float* rr, float* ri, long long rbs,
-              int rxs) {
-  Planes p;
-  p.ur = ur;
-  p.ui = ui;
-  p.ubs = ubs;
-  p.uxs = uxs;
-  p.k2 = k2;
-  p.kbs = kbs;
-  p.sr = sr;
-  p.si = si;
-  p.sbs = sbs;
-  p.sxs = sxs;
-  p.rr = rr;
-  p.ri = ri;
-  p.rbs = rbs;
-  p.rxs = rxs;
-  return p;
+template <int R, int MODE>
+int launch(const Planes& p, const float* cxr, const float* cxi,
+           const float* cyr, const float* cyi, int B, int H, int W,
+           cudaStream_t stream) {
+  using T = Tile<MODE>;
+  const dim3 grid((W + T::TW - 1) / T::TW, (H + T::TH - 1) / T::TH, B);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  stencil_residual_kernel<R, MODE>
+      <<<grid, T::THREADS, 0, stream>>>(p, cxr, cxi, cyr, cyi, H, W);
+  return (int)cudaGetLastError();
+}
+
+template <int MODE>
+int launch_radius(const Planes& p, const float* cxr, const float* cxi,
+                  const float* cyr, const float* cyi, int B, int H, int W,
+                  int radius, cudaStream_t stream) {
+  return radius == 1
+             ? launch<1, MODE>(p, cxr, cxi, cyr, cyi, B, H, W, stream)
+             : launch<2, MODE>(p, cxr, cxi, cyr, cyi, B, H, W, stream);
 }
 
 }  // namespace
 
-// K2a / K2b. Strides in elements; radius 1 or 2.
+// K2a, K2b and K2c. Strides in elements; radius 1 or 2; mode 0 (scalar),
+// 1 (planes) or 2 (pairs), as ops/stencil_residual.stencil_variant picks.
 extern "C" int hn_stencil_residual(
     const float* ur, const float* ui, long long ubs, int uxs, const float* k2,
     long long kbs, const float* sr, const float* si, long long sbs, int sxs,
     float* rr, float* ri, long long rbs, int rxs, const float* cxr,
     const float* cxi, const float* cyr, const float* cyi, int B, int H, int W,
-    int radius, void* stream) {
-  const Planes p = planes(ur, ui, ubs, uxs, k2, kbs, sr, si, sbs, sxs, rr, ri,
-                          rbs, rxs);
-  if (!valid(p, B, H, W, radius) || cxr == nullptr || cxi == nullptr ||
-      cyr == nullptr || cyi == nullptr) {
+    int radius, int mode, void* stream) {
+  Planes p;
+  p.ur = ur, p.ui = ui, p.ubs = ubs, p.uxs = uxs;
+  p.k2 = k2, p.kbs = kbs;
+  p.sr = sr, p.si = si, p.sbs = sbs, p.sxs = sxs;
+  p.rr = rr, p.ri = ri, p.rbs = rbs, p.rxs = rxs;
+  if (!valid(p, B, H, W, radius) || !fits(p, mode, H, W, radius) ||
+      cxr == nullptr || cxi == nullptr || cyr == nullptr || cyi == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  const dim3 block(TW, TY);
-  if (radius == 1) {
-    stencil_residual_kernel<1><<<grid, block, 0, s>>>(p, cxr, cxi, cyr, cyi, H, W);
-  } else {
-    stencil_residual_kernel<2><<<grid, block, 0, s>>>(p, cxr, cxi, cyr, cyi, H, W);
+  switch (mode) {
+    case kPlanes:
+      return launch_radius<kPlanes>(p, cxr, cxi, cyr, cyi, B, H, W, radius, s);
+    case kPairs:
+      return launch_radius<kPairs>(p, cxr, cxi, cyr, cyi, B, H, W, radius, s);
+    default:
+      return launch_radius<kScalar>(p, cxr, cxi, cyr, cyi, B, H, W, radius, s);
   }
-  return (int)cudaGetLastError();
-}
-
-// K2c. btr, bti: the banded [W, W] x-tap matrices, Bt[j, c] the coefficient
-// of input column j for output column c; needs W >= 2 * radius + 1.
-extern "C" int hn_stencil_residual_mma(
-    const float* ur, const float* ui, long long ubs, int uxs, const float* k2,
-    long long kbs, const float* sr, const float* si, long long sbs, int sxs,
-    float* rr, float* ri, long long rbs, int rxs, const float* btr,
-    const float* bti, const float* cyr, const float* cyi, int B, int H, int W,
-    int radius, void* stream) {
-  const Planes p = planes(ur, ui, ubs, uxs, k2, kbs, sr, si, sbs, sxs, rr, ri,
-                          rbs, rxs);
-  if (!valid(p, B, H, W, radius) || W < 2 * radius + 1 || btr == nullptr ||
-      bti == nullptr || cyr == nullptr || cyi == nullptr) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((W + MW - 1) / MW, (H + MT - 1) / MT, B);
-  if (radius == 1) {
-    stencil_residual_mma_kernel<1><<<grid, MTHREADS, 0, s>>>(p, btr, bti, cyr,
-                                                            cyi, H, W);
-  } else {
-    stencil_residual_mma_kernel<2><<<grid, MTHREADS, 0, s>>>(p, btr, bti, cyr,
-                                                            cyi, H, W);
-  }
-  return (int)cudaGetLastError();
 }

@@ -1,31 +1,36 @@
 """Fused FD-stencil Helmholtz residual: the port of the TPU kernels of
-`helmnet_tpu/ops/pallas_stencil.py` to CUDA kernels for Hopper
+`helmnet_tpu/ops/pallas_stencil.py` to one CUDA kernel for Hopper
 (`csrc/stencil_residual.cu`), with the non-kernel half of that module.
 
 All three entry points compute `r = L u + k^2 u - s` for the periodic
 (2r+1)-tap stencil operator of ops/stencil.py on split planes
-`[B, H, W]` f32 (re and im apart), as their TPU counterparts do:
+`[B, H, W]` f32 (re and im apart), as their TPU counterparts do, and on a
+CUDA tensor each launches the same kernel, `stencil_residual_kernel`:
 
 - `residual_planes` (K2a, `pallas_stencil.py:212`) and
-  `residual_planes_tiled` (K2b, :161) launch one CUDA kernel,
-  `stencil_residual_kernel`. `tile_h` is the TPU kernel's VMEM row tile:
-  it keeps its checks (`H % tile_h == 0`; `H == tile_h` goes to
+  `residual_planes_tiled` (K2b, :161). `tile_h` is the TPU kernel's VMEM
+  row tile: it keeps its checks (`H % tile_h == 0`; `H == tile_h` goes to
   `residual_planes`), and it does not set the CUDA tile.
-- `residual_planes_mxu` (K2c, :452) launches `stencil_residual_mma_kernel`,
-  which does the x taps as a product with the banded `[W, W]` matrices
-  (`banded_matrices`, built once per operator and cached on it) on the
-  tensor cores, band tiles only, in 3xTF32.
+- `residual_planes_mxu` (K2c, :452). The TPU did its x taps as a product
+  with the banded `[W, W]` matrices on the MXU; on the card they are 2r+1
+  shifted reads from shared memory, so it launches the kernel with the
+  tap tables (the values the bands hold) and keeps the TPU entry point's
+  checks, its own counter and its plain version, the banded product
+  (`banded_matrices`, built once per operator and cached on it).
 
 A plane may be a split plane (element stride 1) or one half of a channel
 pair or of a complex64 tensor seen through `torch.view_as_real` (element
 stride 2), so `helmholtz_residual_kernel` (channel pairs, the counterpart
 of `helmholtz_residual_pallas`) and GMRES's complex matvec launch without
 a split or stack copy. `s=None` means zero and is not read.
+`stencil_variant` picks the kernel's instance from the operands before
+the launch: `planes` (float4 accesses to split planes), `pairs` (float4
+accesses to interleaved re/im pairs) or `scalar` (anything else).
 
-Beside the kernels: their plain PyTorch versions (`residual_planes_plain`,
+Beside the kernel: its plain PyTorch versions (`residual_planes_plain`,
 `residual_planes_mxu_plain`), which the CPU tests use and chip_smoke.py
-holds the kernels against on the card; one launch counter per entry
-point (`residual_planes.launches`, ...), raised only where a kernel is
+holds the kernel against on the card; one launch counter per entry
+point (`residual_planes.launches`, ...), raised only where the kernel is
 launched; `kernel_supported` and `helmholtz_residual_stencil_auto`, the
 counterparts of `pallas_supported` and the dispatcher of the same name;
 and `stencil_to_csr`, the operator as a scipy matrix on the host.
@@ -184,13 +189,22 @@ def _into(out, rr, ri):
     return out
 
 
-def _launch(entry: str, op: StencilPML, u_re, u_im, k_sq, s_re, s_im, out,
-            tables):
-    """Check every operand and launch `entry` (hn_stencil_residual or
-    hn_stencil_residual_mma) on the current stream. Returns (r_re, r_im)."""
+VARIANTS = ("scalar", "planes", "pairs")  # the kernel's `mode` argument
+
+
+def _interleaved(re: torch.Tensor, im: torch.Tensor, es: int) -> bool:
+    """Whether re and im are the two halves of one (re, im) pair buffer."""
+    return es == 2 and im.data_ptr() == re.data_ptr() + 4
+
+
+def _operands(op: StencilPML, u_re, u_im, k_sq, s_re, s_im, out):
+    """Check every operand of a launch and pick the instance. Returns
+    (variant, k3, strides): `k3` is k_sq as [B, H, W] (a batch stride of 0
+    broadcasts one plane) and `strides` (ubs, uxs, kbs, sbs, sxs, rbs, rxs)
+    in elements. `out=None` stands for fresh planes in u's layout
+    (`_empty_planes`), which fit whatever instance u fits; rbs and rxs are
+    then None."""
     device = u_re.device
-    if device.type != "cuda":
-        raise ValueError(f"the stencil kernels run on cuda or cpu, not {device}")
     b, h, w = u_re.shape
     shape = (b, h, w)
     ubs, uxs = _plane_strides("u_re", u_re, shape, device)
@@ -200,22 +214,77 @@ def _launch(entry: str, op: StencilPML, u_re, u_im, k_sq, s_re, s_im, out,
     kbs, kxs = _plane_strides("k_sq", k3, shape, device, batch_broadcast=True)
     if kxs != 1:
         raise ValueError("k_sq must have element stride 1")
+    fields = [(u_re, u_im, ubs, uxs)]
     sbs = sxs = 0
     if s_re is not None:
         sbs, sxs = _plane_strides("s_re", s_re, shape, device)
         if _plane_strides("s_im", s_im, shape, device) != (sbs, sxs):
             raise ValueError("s_re and s_im must share their strides")
+        fields.append((s_re, s_im, sbs, sxs))
+    rbs = rxs = None
+    if out is not None:
+        rbs, rxs = _plane_strides("r_re", out[0], shape, device)
+        if _plane_strides("r_im", out[1], shape, device) != (rbs, rxs):
+            raise ValueError("r_re and r_im must share their strides")
+        fields.append((out[0], out[1], rbs, rxs))
+
+    at = lambda t, n: t.data_ptr() % n == 0
+    if h < op.radius:  # a chunk would need more than one period of wrap
+        variant = "scalar"
+    elif (w % 2 == 0 and at(k3, 8) and kbs % 2 == 0
+          and all(_interleaved(re, im, es) and at(re, 16) and bs % 4 == 0
+                  for re, im, bs, es in fields)):
+        variant = "pairs"
+    elif (w % 4 == 0 and at(k3, 16) and kbs % 4 == 0
+          and all(es == 1 and at(re, 16) and at(im, 16) and bs % 4 == 0
+                  for re, im, bs, es in fields)):
+        variant = "planes"
+    else:
+        variant = "scalar"
+    return variant, k3, (ubs, uxs, kbs, sbs, sxs, rbs, rxs)
+
+
+def _empty_planes(u_re, u_im, uxs: int):
+    """(r_re, r_im) in u's layout: the halves of one [B, H, W, 2] buffer
+    when u's planes are, else two split planes."""
+    if _interleaved(u_re, u_im, uxs):
+        r = torch.empty((*u_re.shape, 2), dtype=torch.float32, device=u_re.device)
+        return r[..., 0], r[..., 1]
+    return (torch.empty(u_re.shape, dtype=torch.float32, device=u_re.device),
+            torch.empty(u_re.shape, dtype=torch.float32, device=u_re.device))
+
+
+def stencil_variant(op: StencilPML, u_re, u_im, k_sq, s_re=None, s_im=None,
+                    *, out=None) -> str:
+    """The kernel instance a launch with these operands takes, on any
+    device: `pairs` when u, s and r are each one buffer of interleaved
+    (re, im) pairs (16-byte aligned, k_sq 8-byte aligned, W even),
+    `planes` when all are split planes (16-byte aligned, W % 4 == 0), else
+    `scalar`; the vector instances also need H >= the stencil radius.
+    `out=None` stands for the planes the launch would allocate: u's
+    layout."""
+    _check_call(op, u_re, u_im, k_sq, s_re, s_im)
+    return _operands(op, u_re, u_im, k_sq, s_re, s_im, out)[0]
+
+
+def _launch(op: StencilPML, u_re, u_im, k_sq, s_re, s_im, out):
+    """Check every operand and launch `hn_stencil_residual` on the current
+    stream, with the instance `stencil_variant` picks. Returns
+    (r_re, r_im)."""
+    device = u_re.device
+    if device.type != "cuda":
+        raise ValueError(f"the stencil kernels run on cuda or cpu, not {device}")
+    variant, k3, strides = _operands(op, u_re, u_im, k_sq, s_re, s_im, out)
+    ubs, uxs, kbs, sbs, sxs, rbs, rxs = strides
+    b, h, w = u_re.shape
     if out is None:
-        out = (torch.empty(shape, dtype=torch.float32, device=device),
-               torch.empty(shape, dtype=torch.float32, device=device))
-    rbs, rxs = _plane_strides("r_re", out[0], shape, device)
-    if _plane_strides("r_im", out[1], shape, device) != (rbs, rxs):
-        raise ValueError("r_re and r_im must share their strides")
-    for name, t, n in zip(("table 0", "table 1", "cy_r", "cy_i"), tables,
-                          (None, None, h, h)):
+        out = _empty_planes(u_re, u_im, uxs)
+        rbs, rxs = _plane_strides("r_re", out[0], (b, h, w), device)
+    tables = (op.cx_r, op.cx_i, op.cy_r, op.cy_i)
+    for name, t, n in zip(("cx_r", "cx_i", "cy_r", "cy_i"), tables, (w, w, h, h)):
         if t.device != device or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"operator {name} must be contiguous float32 on {device}")
-        if n is not None and tuple(t.shape) != (2 * op.radius + 1, n):
+        if tuple(t.shape) != (2 * op.radius + 1, n):
             raise ValueError(f"operator {name} has shape {tuple(t.shape)}")
 
     from .._build import load_library
@@ -224,13 +293,15 @@ def _launch(entry: str, op: StencilPML, u_re, u_im, k_sq, s_re, s_im, out,
     ptr = lambda t: None if t is None else ctypes.c_void_p(t.data_ptr())
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = getattr(lib, entry)(
+        rc = lib.hn_stencil_residual(
             ptr(u_re), ptr(u_im), ubs, uxs, ptr(k3), kbs,
             ptr(s_re), ptr(s_im), sbs, sxs, ptr(out[0]), ptr(out[1]), rbs, rxs,
-            *map(ptr, tables), b, h, w, op.radius, ctypes.c_void_p(stream),
+            *map(ptr, tables), b, h, w, op.radius, VARIANTS.index(variant),
+            ctypes.c_void_p(stream),
         )
     if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+        raise RuntimeError(f"hn_stencil_residual ({variant}) launch failed: "
+                           f"CUDA error {rc}")
     return out
 
 
@@ -240,12 +311,13 @@ def residual_planes(op: StencilPML, u_re, u_im, k_sq, s_re=None, s_im=None,
 
     `k_sq` is [B, H, W] or [H, W]; `s_re`/`s_im` may be None (zero).
     `out`: optional (r_re, r_im) planes to write into, for example the two
-    halves of a channel-pair tensor; they must not overlap the inputs."""
+    halves of a channel-pair tensor; they must not overlap the inputs.
+    Without it the kernel writes planes in u's layout (the halves of one
+    pair buffer when u's are)."""
     _check_call(op, u_re, u_im, k_sq, s_re, s_im)
     if u_re.device.type == "cpu":
         return _into(out, *residual_planes_plain(op, u_re, u_im, k_sq, s_re, s_im))
-    out = _launch("hn_stencil_residual", op, u_re, u_im, k_sq, s_re, s_im, out,
-                  (op.cx_r, op.cx_i, op.cy_r, op.cy_i))
+    out = _launch(op, u_re, u_im, k_sq, s_re, s_im, out)
     residual_planes.launches += 1
     return out
 
@@ -268,18 +340,19 @@ def residual_planes_tiled(op: StencilPML, u_re, u_im, k_sq, s_re=None,
         return residual_planes(op, u_re, u_im, k_sq, s_re, s_im, out=out)
     if u_re.device.type == "cpu":
         return _into(out, *residual_planes_plain(op, u_re, u_im, k_sq, s_re, s_im))
-    out = _launch("hn_stencil_residual", op, u_re, u_im, k_sq, s_re, s_im, out,
-                  (op.cx_r, op.cx_i, op.cy_r, op.cy_i))
+    out = _launch(op, u_re, u_im, k_sq, s_re, s_im, out)
     residual_planes_tiled.launches += 1
     return out
 
 
 def residual_planes_mxu(op: StencilPML, u_re, u_im, k_sq, s_re=None,
                         s_im=None, *, tile_h: int = 128, out=None):
-    """Stencil residual with the x taps as a banded product on the tensor
-    cores (K2c). The same `tile_h` checks as `residual_planes_tiled`. The
-    band picks each tap once only when W >= 2r + 1, so narrower grids
-    raise on every device."""
+    """Stencil residual whose TPU kernel did the x taps as a banded product
+    on the MXU (K2c). The same `tile_h` checks as `residual_planes_tiled`.
+    The band picks each tap once only when W >= 2r + 1, so narrower grids
+    raise on every device. On the CPU its plain version is the banded
+    product; on the card it launches the one stencil kernel with the tap
+    tables, which agrees with the band to about 1e-6."""
     _check_call(op, u_re, u_im, k_sq, s_re, s_im)
     h, w = u_re.shape[1:]
     _tile_rows(h, tile_h)
@@ -290,9 +363,7 @@ def residual_planes_mxu(op: StencilPML, u_re, u_im, k_sq, s_re=None,
     if u_re.device.type == "cpu":
         return _into(out, *residual_planes_mxu_plain(op, u_re, u_im, k_sq, s_re,
                                                      s_im))
-    btr, bti = banded_matrices(op)
-    out = _launch("hn_stencil_residual_mma", op, u_re, u_im, k_sq, s_re, s_im,
-                  out, (btr, bti, op.cy_r, op.cy_i))
+    out = _launch(op, u_re, u_im, k_sq, s_re, s_im, out)
     residual_planes_mxu.launches += 1
     return out
 

@@ -337,9 +337,10 @@ def test_k3_wrapper_rejects(cuda):
 # K2a-c: the fused stencil residual (ops/stencil_residual.py)
 # ---------------------------------------------------------------------------
 
-# atol 1e-5 for the CUDA-core kernel (tests/test_pallas_stencil.py:35,90),
-# 2e-4 for the tensor-core one (:116)
-K2_ATOL = {"planes": 1e-5, "tiled": 1e-5, "mxu": 2e-4}
+# K2a and K2b repeat their plain version's roundings in its order, so they
+# are held to the bit; K2c's plain version is the banded product, whose x
+# taps sum in another order: atol 2e-4 (tests/test_pallas_stencil.py:116)
+K2_ATOL = {"planes": 0.0, "tiled": 0.0, "mxu": 2e-4}
 
 
 def _k2_fields(rng, b, h, w, device):
@@ -361,38 +362,68 @@ def _k2_entry(kind, tile_h):
     return (lambda *a, **k: entry(*a, tile_h=tile_h, **k)), plain
 
 
+def _k2_operands(layout, u, s, k_sq, with_s, k_broadcast):
+    """The planes of one case: split, stride-2 halves of [B, H, W, 2],
+    stride-2 halves of complex64 views, or split planes one float into
+    their buffers."""
+    if layout == "complex":
+        u = torch.view_as_real(torch.view_as_complex(u.contiguous()))
+        s = torch.view_as_real(torch.view_as_complex(s.contiguous()))
+    if layout in ("pairs", "complex"):
+        planes = [u[..., 0], u[..., 1], s[..., 0], s[..., 1]]
+    else:
+        planes = [t.contiguous() for t in (u[..., 0], u[..., 1], s[..., 0], s[..., 1])]
+    if layout == "offset":
+        def shifted(t):
+            buf = torch.empty(t.numel() + 1, device=t.device)
+            buf[1:].copy_(t.reshape(-1))
+            return buf[1:].view(t.shape)
+        planes = [shifted(t) for t in planes]
+    ur, ui, sr_, si = planes
+    if not with_s:
+        sr_ = si = None
+    k = k_sq[0] if k_broadcast else k_sq
+    return ur, ui, k, sr_, si
+
+
 @pytest.mark.parametrize("kind", ["planes", "tiled", "mxu"])
 @pytest.mark.parametrize(
-    "order,b,h,w,pairs,with_s",
+    "order,b,h,w,pml,layout,with_s,k_broadcast,variant",
     [
-        (4, 2, 64, 128, False, True),    # aligned, split planes
-        (2, 2, 64, 128, False, True),    # order 2
-        (4, 3, 96, 72, True, True),      # ragged columns, stride-2 halves
-        (4, 1, 40, 40, False, False),    # s = None
-        (2, 2, 32, 33, True, False),     # ragged, pairs, no s
+        (4, 2, 64, 128, 8, "split", True, False, "planes"),   # aligned, split planes
+        (2, 2, 64, 128, 8, "split", True, False, "planes"),   # order 2
+        (4, 3, 96, 72, 8, "pairs", True, False, "pairs"),     # ragged columns, pairs
+        (4, 1, 40, 40, 8, "split", False, False, "planes"),   # s = None
+        (2, 2, 32, 33, 8, "pairs", False, False, "scalar"),   # ragged, stride 2, no s
+        (4, 2, 3, 5, 1, "split", True, False, "scalar"),      # PML 1: wraps twice
+        (4, 2, 1, 1, 0, "split", True, False, "scalar"),      # one point
+        (4, 3, 64, 128, 8, "split", True, True, "planes"),    # k^2 broadcast
+        (4, 3, 48, 64, 8, "pairs", True, True, "pairs"),      # k^2 broadcast, pairs
+        (4, 2, 64, 128, 8, "offset", True, False, "scalar"),  # misaligned views
+        (4, 16, 256, 256, 8, "complex", False, False, "pairs"),  # GMRES's matvec
     ],
 )
-def test_k2_matches_plain(cuda, kind, order, b, h, w, pairs, with_s):
+def test_k2_matches_plain(cuda, kind, order, b, h, w, pml, layout, with_s,
+                          k_broadcast, variant):
+    from helmnet_tpu_torch.ops import stencil_residual as sr
     from helmnet_tpu_torch.ops.stencil import make_stencil_operator
 
     rng = np.random.default_rng(order * 100 + h + w)
-    op = make_stencil_operator(h, w, 8, 2.0, 1.0, order=order, device=cuda)
+    op = make_stencil_operator(h, w, pml, 2.0, 1.0, order=order, device=cuda)
     u, s, k_sq = _k2_fields(rng, b, h, w, cuda)
-    if pairs:
-        ur, ui, sr_, si = u[..., 0], u[..., 1], s[..., 0], s[..., 1]
-    else:
-        ur, ui = u[..., 0].contiguous(), u[..., 1].contiguous()
-        sr_, si = s[..., 0].contiguous(), s[..., 1].contiguous()
-    if not with_s:
-        sr_ = si = None
-    entry, plain = _k2_entry(kind, h // 2)
-    got = entry(op, ur, ui, k_sq, sr_, si)
-    ref = plain(op, ur, ui, k_sq, sr_, si)
+    args = _k2_operands(layout, u, s, k_sq, with_s, k_broadcast)
+    assert sr.stencil_variant(op, *args) == variant
+    entry, plain = _k2_entry(kind, h // 2 if h % 2 == 0 else 1)
+    got = entry(op, *args)
+    ref = plain(op, *args)
     torch.cuda.synchronize()
     for g, r in zip(got, ref):
         assert bool(torch.isfinite(g).all())
-        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
-                                   atol=K2_ATOL[kind])
+        if K2_ATOL[kind] == 0.0:
+            assert torch.equal(g, r)
+        else:
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       atol=K2_ATOL[kind])
 
 
 def test_k2_pair_wrapper_and_complex_view(cuda):
@@ -451,3 +482,25 @@ def test_k2_wrapper_rejects(cuda):
         sr.residual_planes(op, ur, ui.cpu(), k_sq)
     with pytest.raises(ValueError, match="operator"):
         sr.residual_planes(op.to("cpu"), ur, ui, k_sq)
+
+
+def test_k2c_launches_the_one_kernel(cuda):
+    """K2c on the card raises only its own counter, agrees with K2a's
+    kernel to the bit (the same launch with the same tap tables), and the
+    library has no tensor-core band kernel any more."""
+    from helmnet_tpu_torch._build import load_library
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+
+    rng = np.random.default_rng(10)
+    op = make_stencil_operator(128, 128, 8, 2.0, 1.0, device=cuda)
+    u, s, k_sq = _k2_fields(rng, 2, 128, 128, cuda)
+    planes = (u[..., 0], u[..., 1], k_sq, s[..., 0], s[..., 1])
+    sr.reset_launches()
+    got = sr.residual_planes_mxu(op, *planes, tile_h=64)
+    assert (sr.residual_planes.launches, sr.residual_planes_tiled.launches,
+            sr.residual_planes_mxu.launches) == (0, 0, 1)
+    ref = sr.residual_planes(op, *planes)
+    torch.cuda.synchronize()
+    assert all(torch.equal(g, r) for g, r in zip(got, ref))
+    assert not hasattr(load_library(), "hn_stencil_residual_mma")

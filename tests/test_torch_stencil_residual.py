@@ -170,3 +170,54 @@ def test_wrapper_rejects_bad_arguments():
     with pytest.raises(ValueError, match="operator"):
         tsr.residual_planes(top, torch.zeros((1, 16, 32)), torch.zeros((1, 16, 32)),
                             torch.zeros((1, 16, 32)))
+
+
+def _pair_operands(b, h, w):
+    """GMRES's matvec operands: stride-2 halves of a complex64 view."""
+    pair = torch.view_as_real(torch.zeros((b, h, w), dtype=torch.complex64))
+    return (pair[..., 0], pair[..., 1], torch.zeros((b, h, w)))
+
+
+def _offset_planes(b, h, w):
+    """Split planes that start one float into their buffers."""
+    view = lambda: torch.zeros(b * h * w + 1)[1:].view(b, h, w)
+    return (view(), view(), torch.zeros((b, h, w)), view(), view())
+
+
+@pytest.mark.parametrize("case,want", [
+    ("split 512^2 x 8", "planes"),
+    ("view_as_real 16 x 256^2", "pairs"),
+    ("channel pairs [B, H, W, 2]", "pairs"),
+    ("W = 33", "scalar"),
+    ("offset by one float", "scalar"),
+    ("3x5 plane", "scalar"),
+])
+def test_stencil_variant(case, want):
+    """The kernel instance each operand layout takes: the choice is made
+    from shapes, strides and pointer alignment, which CPU tensors share
+    with CUDA ones."""
+    z = lambda *s: torch.zeros(s)
+    kw = {}
+    if case == "split 512^2 x 8":
+        h = w = 512
+        args = (z(8, h, w), z(8, h, w), z(8, h, w), z(8, h, w), z(8, h, w))
+    elif case == "view_as_real 16 x 256^2":
+        h = w = 256
+        args = _pair_operands(16, h, w)
+    elif case == "channel pairs [B, H, W, 2]":
+        h, w = 64, 96
+        u, s, r = z(3, h, w, 2), z(3, h, w, 2), z(3, h, w, 2)
+        args = (u[..., 0], u[..., 1], z(h, w), s[..., 0], s[..., 1])
+        kw["out"] = (r[..., 0], r[..., 1])
+    elif case == "W = 33":
+        h, w = 32, 33
+        args = (z(2, h, w), z(2, h, w), z(2, h, w))
+    elif case == "offset by one float":
+        h, w = 64, 128
+        args = _offset_planes(2, h, w)
+    else:
+        h, w = 3, 5
+        args = (z(2, h, w), z(2, h, w), z(2, h, w))
+    op = tst.make_stencil_operator(h, w, 1 if h == 3 else 4, 2.0, 1.0,
+                                   device="cpu")
+    assert tsr.stencil_variant(op, *args, **kw) == want

@@ -7,8 +7,9 @@ Drives the learned 2D solve at 96^2 x batch 32 x 500 iterations through
 `IterativeSolver.forward` with the fused DoubleConv kernel K1, the
 channel-packed solve at 256^2 x 16 x 50 through `rollout_packed` with the
 packed fused DoubleConv kernel K3, the FD-stencil residual kernels K2a-c
-at bench.py's 512^2 x 8, and batched GMRES on the stencil operator at
-256^2 x 16, and checks them all:
+at bench.py's 512^2 x 8, batched GMRES on the stencil operator at
+256^2 x 16, and unsupervised replay-buffer training at 96^2 x 32 with 10
+unrolled steps, and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -81,7 +82,23 @@ at bench.py's 512^2 x 8, and batched GMRES on the stencil operator at
    over the same bytes; the 32^2 problem of tests/test_gmres.py:131-153
    against
    scipy's spsolve of `stencil_to_csr` within 5e-3 max|u|; K2's share of
-   a solve's device time (torch.profiler).
+   a solve's device time (torch.profiler);
+11. training (`train/loop.Trainer`) at `experiments/base.json`'s full
+   width (batch 32, 10 unrolled steps, buffer 600) in 'xla' mode (cuDNN,
+   the JAX package's training mode), from the trained weights, on the
+   first 640 maps of datasets/splitted_96/trainset.npz: one step's loss
+   and every grad leaf on the card against the port's CPU path (4
+   experiences; loss rel 1e-3, grads atol 2e-3 max|ref| + rtol 2e-3,
+   tests/test_parity.py:182-190); the device buffer's first step against
+   the host buffer's on the same draw (loss rel 1e-5); after that step
+   every leaf has a finite, nonzero grad and has moved; then two
+   device-buffer epochs and one host-buffer epoch (20 steps each) with
+   finite losses and grad norms, the curriculum going from 1 to 21
+   iterations, evolved experiences re-admitted in the second epoch, every
+   leaf moved, and no launch of K1, K2a-c or K3; the wall of a train step
+   (median of 5 after the first), device time, busy share and busiest
+   kernels over 5 steps (torch.profiler), the peak memory of a step with
+   remat off and on, and `cli/train --smoke` on the card.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -130,6 +147,12 @@ XLA_RTOL = 1e-3  # packed against unpacked, both f32 (the port tests' rtol)
 KERNEL_RTOL = 2e-2  # atol = KERNEL_RTOL * max|ref| (test_pallas_pixconv.py:36)
 EARLY_RTOL = 0.05  # bf16 kernel vs f32 path, first 4 rmse (:125-127)
 LATE_FACTOR = 1.5  # rmse at the last iteration (tests/test_parity.py:94)
+TRAIN_MAPS = 640  # 20 batches of 32 an epoch
+TRAIN_CPU_BATCH = 4  # experiences of the step held against the CPU path
+TRAIN_LOSS_RTOL = 1e-3  # tests/test_parity.py:182-190: loss rel 1e-3,
+TRAIN_GRAD_RTOL = 2e-3  # each grad leaf atol 2e-3 * max|ref|, rtol 2e-3
+TRAIN_BUFFER_RTOL = 1e-5  # device vs host buffer (test_device_buffer.py:78)
+TRAIN_TIMED, TRAIN_PROFILE_STEPS = 5, 5
 
 
 def log(msg: str) -> None:
@@ -391,6 +414,184 @@ def stencil_csr(op, k_sq: torch.Tensor) -> torch.Tensor:
         torch.from_numpy(m.indices.astype(np.int32)),
         torch.from_numpy(m.data.astype(np.complex64)),
         size=m.shape, check_invariants=True).to(k_sq.device)
+
+
+def train_phase(dev, cfg, params, hand_kernels) -> dict:
+    """Phase 11: the unsupervised training path on the card, in 'xla' mode
+    (cuDNN convs, the JAX package's training mode), from the trained
+    weights, on the first TRAIN_MAPS maps of the 96^2 train set. Every gate
+    failure exits; the returned dict holds what was measured.
+    `hand_kernels()` reads the launch counts of K1, K2a-c and K3."""
+    import contextlib
+    import io
+    import tempfile
+
+    from helmnet_tpu_torch.cli import train as train_cli
+    from helmnet_tpu_torch.data.ellipses import load_maps
+    from helmnet_tpu_torch.models.hybridnet import iter_leaves, map_leaves
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.double_conv import fused_double_conv
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
+    from helmnet_tpu_torch.train.device_buffer import FIELDS
+    from helmnet_tpu_torch.train.loop import Trainer, unrolled_loss
+    from helmnet_tpu_torch.train.replay import ExperienceBatch
+
+    t0 = time.perf_counter()
+    if cfg.model.double_conv_mode != "xla":
+        fail("training runs in 'xla' mode")
+    tc = cfg.training
+    bs, unroll = tc.train_batch_size, tc.unrolling_steps
+    maps = load_maps(cfg.medium.train_set)[:TRAIN_MAPS]
+
+    def grads_of(p, op, batch):
+        leaves = [t for _, t in iter_leaves(p)]
+        loss, _ = unrolled_loss(p, op, batch, cfg=cfg)
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    # the card against the port's CPU path: loss and grads of one step
+    host = Trainer(cfg, params=params, device=dev)
+    host.fill_buffer(maps)
+    idx = np.random.default_rng(7).choice(tc.buffer_size, TRAIN_CPU_BATCH, replace=False)
+    rows = [getattr(host.buffer, k)[idx] for k in FIELDS]
+    card_batch = ExperienceBatch(*(torch.as_tensor(a, device=dev) for a in rows), idx)
+    cpu_batch = ExperienceBatch(*(torch.as_tensor(a) for a in rows), idx)
+    cpu_params = map_leaves(params, lambda _, t: t.detach().cpu().requires_grad_(True))
+    card_loss, card_grads = grads_of(host.params, host.op, card_batch)
+    cpu_loss, cpu_grads = grads_of(cpu_params, host.op.to("cpu"), cpu_batch)
+    loss_gap = abs(float(card_loss) - float(cpu_loss)) / abs(float(cpu_loss))
+    worst = 0.0  # max over leaves of |card - cpu| / (atol + rtol |cpu|)
+    for (path, _), g, r in zip(iter_leaves(params), card_grads, cpu_grads):
+        g = g.cpu()
+        limit = TRAIN_GRAD_RTOL * (r.abs().max() + r.abs())
+        worst = max(worst, float(((g - r).abs() / limit).max()))
+    log(f"phase 11 one step ({TRAIN_CPU_BATCH} experiences x {unroll} unrolled "
+        f"steps) on the card against the CPU path: loss {float(card_loss):.6e} / "
+        f"{float(cpu_loss):.6e}, rel diff {loss_gap:.3e} (rtol {TRAIN_LOSS_RTOL}); "
+        f"grads at {worst:.3f} of atol {TRAIN_GRAD_RTOL}*max|ref| + rtol "
+        f"{TRAIN_GRAD_RTOL}")
+    if not loss_gap <= TRAIN_LOSS_RTOL or not worst <= 1.0:
+        fail("a training step on the card disagrees with the CPU path")
+
+    # the device buffer against the host buffer: the first step on one draw
+    dbuf = Trainer(cfg, params=params, device=dev, device_buffer=True)
+    dbuf.fill_buffer(maps)
+    before = {p: t.detach().clone() for p, t in iter_leaves(dbuf.params)}
+    mh, _ = host._train_step(card_batch, 1)
+    zeros = torch.zeros(TRAIN_CPU_BATCH, dtype=torch.long, device=dev)
+    md = dbuf._mega_step(dbuf._dev_buf, dbuf.op, dbuf.src_pool, dbuf._sos_pool,
+                         torch.as_tensor(idx, device=dev), zeros, zeros, 1,
+                         cfg.max_iterations)
+    buf_gap = abs(float(md["loss"]) - float(mh["loss"])) / abs(float(mh["loss"]))
+    log(f"phase 11 device buffer against host buffer, first step: loss rel diff "
+        f"{buf_gap:.3e} (rtol {TRAIN_BUFFER_RTOL})")
+    if not buf_gap <= TRAIN_BUFFER_RTOL:
+        fail("the device-buffer step disagrees with the host-buffer step")
+    # guard against a weight left out of autograd: after step 1 every leaf
+    # has a finite, nonzero grad and has moved
+    for path, t in iter_leaves(dbuf.params):
+        g = t.grad
+        if g is None or not bool(torch.isfinite(g).all()) or not bool(g.any()):
+            fail(f"{path} has no finite, nonzero grad after the first step")
+        if torch.equal(t.detach(), before[path]):
+            fail(f"{path} did not move in the first step")
+    log(f"phase 11 after step 1 all {len(before)} leaves have a finite, nonzero "
+        f"grad and moved")
+
+    # the main path: two device-buffer epochs, then one host-buffer epoch,
+    # with every hand kernel's count set to 0 just before
+    train = Trainer(cfg, params=params, device=dev, device_buffer=True)
+    train.fill_buffer(maps)
+    sr.reset_launches()
+    fused_double_conv.launches = packed_double_conv.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    epochs = [train.training_epoch(maps) for _ in range(2)]
+    epochs.append(host.training_epoch(maps))
+    torch.cuda.synchronize()
+    epochs_s = time.perf_counter() - t
+    counts = hand_kernels()
+    for i, e in enumerate(epochs):
+        log(f"phase 11 epoch {i} ({'host' if i == 2 else 'device'} buffer): "
+            f"loss {e['train_loss_mean']:.6e}, mean grad norm "
+            f"{e['grad_norm_mean']:.4e}, maxiter {e['maxiter']}, new_sos "
+            f"{e['new_sos']} of {len(maps)} draws, {e['epoch_time_s']:.2f} s")
+    log(f"phase 11 three epochs of {len(maps) // bs} steps in {epochs_s:.2f} s; "
+        f"launches K2a/K2b/K2c/K1/K3 {counts}")
+    if any(counts):
+        fail(f"training launched a hand kernel: {counts}")
+    if not all(np.isfinite(e["train_loss_mean"]) and np.isfinite(e["grad_norm_mean"])
+               for e in epochs):
+        fail("a training loss or grad norm is not finite")
+    if [e["maxiter"] for e in epochs[:2]] != [1, 1 + tc.curriculum_slope]:
+        fail("the curriculum did not go from 1 to 21 iterations")
+    if not epochs[1]["new_sos"] < len(maps):
+        fail("no evolved experience was re-admitted in the second epoch")
+    start = dict(iter_leaves(params))
+    for path, t in iter_leaves(train.params):
+        if torch.equal(t.detach(), start[path].to(dev)):
+            fail(f"{path} did not move in two epochs")
+
+    # times: the wall of single steps, then a profile of 5
+    maxiter = train.max_allowed_iterations()
+    walls = []
+    for _ in range(TRAIN_TIMED + 1):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        train.device_step(maxiter)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    step_wall = float(np.median(walls[1:]))
+    prof = profile_steps(
+        lambda n: [train.device_step(maxiter) for _ in range(n)], TRAIN_PROFILE_STEPS)
+    log(f"phase 11 train step ({bs} x {GRID}^2 x {unroll} unrolled): wall "
+        f"{1e3 * step_wall:.2f} ms (median of {TRAIN_TIMED} after the first; all "
+        f"{[round(1e3 * w, 2) for w in walls]}), {bs * unroll / step_wall:.1f} "
+        f"experience-steps/s; profile of {TRAIN_PROFILE_STEPS}: wall "
+        f"{prof['wall_ms_per_step']:.2f} ms/step, device "
+        f"{prof['device_ms_per_step']:.2f} ms/step, busy share "
+        f"{prof['busy_share']:.4f}")
+    for k in prof["top"][:5]:
+        print(f"    {k['device_ms_per_step']:.4f} ms/step {k['calls_per_step']:6.1f} "
+              f"calls/step  {k['name']}", flush=True)
+
+    # peak memory of one host-buffer step, remat off and on
+    peaks = {}
+    for remat in (False, True):
+        rcfg = cfg.replace(training=dataclasses.replace(tc, remat=remat))
+        trainer = Trainer(rcfg, params=params, device=dev)
+        batch = ExperienceBatch(*(torch.as_tensor(a[:bs], device=dev) for a in (
+            getattr(host.buffer, k) for k in FIELDS)), np.arange(bs))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        trainer._train_step(batch, 0)
+        torch.cuda.synchronize()
+        peaks["on" if remat else "off"] = {
+            "max_allocated": torch.cuda.max_memory_allocated(), "before": base}
+        del trainer, batch
+    log("phase 11 peak memory of one step (batch {}): remat off {:.3f} GiB, on "
+        "{:.3f} GiB (allocated before the step: {:.3f} / {:.3f} GiB)".format(
+            bs, *(peaks[k]["max_allocated"] / 2**30 for k in ("off", "on")),
+            *(peaks[k]["before"] / 2**30 for k in ("off", "on"))))
+
+    # the CLI's smoke run on the card
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as logs, contextlib.redirect_stdout(out):
+        rc = train_cli.main(["--smoke", "--log-dir", logs])
+    smoke = out.getvalue().strip().splitlines()[-1]
+    log(f"phase 11 cli/train --smoke on the card: rc {rc}, {smoke}")
+    if rc != 0 or not smoke.startswith("SMOKE PASS"):
+        fail("cli/train --smoke failed on the card")
+    seconds = time.perf_counter() - t0
+    log(f"phase 11 done in {seconds:.1f} s")
+    return {
+        "maps": len(maps), "batch": bs, "unrolled": unroll,
+        "cpu_loss_rel_diff": loss_gap, "cpu_grad_worst": worst,
+        "buffer_loss_rel_diff": buf_gap, "epochs": epochs, "epochs_s": epochs_s,
+        "hand_kernel_launches": list(counts), "step_walls_s": walls,
+        "step_wall_s": step_wall, "experience_steps_per_s": bs * unroll / step_wall,
+        "profile": prof, "peak_memory": peaks, "smoke": smoke, "seconds": seconds,
+    }
 
 
 def main() -> int:
@@ -1052,6 +1253,9 @@ def main() -> int:
         print(f"    {k['device_ms_per_step']:.5f} ms {k['calls_per_step']:7.0f} "
               f"calls  {k['name']}", flush=True)
 
+    # -- 11. training ----------------------------------------------------------
+    training = train_phase(dev, cfg, params, launch_counts)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -1137,6 +1341,7 @@ def main() -> int:
                            "scipy_err": float(scipy_err),
                            "scipy_scale": float(scipy_scale),
                            "profile": gmres_profile},
+                       "training": training,
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

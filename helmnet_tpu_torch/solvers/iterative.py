@@ -3,7 +3,8 @@
 
 `rollout` runs the learned iteration as a Python loop over an explicit
 carry (wavefield, residual, hidden states) — the JAX package's
-`lax.scan` — under `torch.no_grad()`. Each step is one HybridNet apply
+`lax.scan` — under `torch.no_grad()`; `n_steps` unrolls the same steps
+under autograd for training (BPTT). Each step is one HybridNet apply
 plus one Helmholtz residual (ops/spectral.py). `IterativeSolver` owns the
 config, operator, source and params and adds the robustness wrappers of
 `forward` (source normalisation, best iterate, chunking, restarts).
@@ -18,6 +19,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..core.config import Config
 from ..core.device import resolve_device
@@ -156,6 +158,46 @@ def rollout(
     for key, trace in traces.items():
         out[key] = torch.stack(trace)
     return out
+
+
+def n_steps(
+    params,
+    op: SpectralPML,
+    source: torch.Tensor,
+    k_sq: torch.Tensor,
+    carry: SolverCarry,
+    *,
+    cfg: Config,
+    num_steps: int,
+    remat: bool = False,
+):
+    """Differentiable unrolled steps from an arbitrary solver state
+    (reference n_steps, hybridnet.py:586-623), a Python loop of
+    `single_step` with autograd on. Returns (final_carry, ys), ys stacking
+    the per-step 'wavefields' and 'residuals' [U, B, H, W, 2] and the flat
+    'states' [U, B, C, S].
+
+    remat=True recomputes each step in the backward pass
+    (`torch.utils.checkpoint`, non-reentrant): the tape keeps only the
+    per-step carries instead of every conv activation; the gradients are
+    the same."""
+    arch = get_architecture(cfg.model.architecture)
+    n_states = len(carry.states)
+
+    def step(wavefield, residual, *states):
+        c = single_step(params, op, source, k_sq,
+                        SolverCarry(wavefield, residual, states), cfg=cfg)
+        return (c.wavefield, c.residual, *c.states)
+
+    ys = {"wavefields": [], "residuals": [], "states": []}
+    for _ in range(num_steps):
+        args = (carry.wavefield, carry.residual, *carry.states)
+        out = checkpoint(step, *args, use_reentrant=False) if remat else step(*args)
+        carry = SolverCarry(out[0], out[1], tuple(out[2:2 + n_states]))
+        ys["wavefields"].append(carry.wavefield)
+        ys["residuals"].append(carry.residual)
+        ys["states"].append(arch.flatten_states(carry.states))
+    return carry, {k: torch.stack(v) for k, v in ys.items()}
 
 
 class IterativeSolver:

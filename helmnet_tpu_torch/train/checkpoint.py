@@ -1,20 +1,30 @@
-"""Import of the reference PyTorch-Lightning checkpoint
-(`trained_models/*.ckpt`), port of the importer half of
-`helmnet_tpu/train/checkpoint.py` (:22-143).
+"""Checkpoints, port of `helmnet_tpu/train/checkpoint.py`.
 
-The checkpoint stores tensors under names like
-`f.enc.0.conv_signal.double_conv.0.weight`, already in the port's layouts
-(OIHW convs, `[I, O, k, k]` transposed convs; models/blocks.py), so they
-are taken as they are, with no round trip through the JAX package's HWIO.
-Orbax checkpoint directories are not read here (ROADMAP Queue A item 3).
+- The importer of the reference PyTorch-Lightning checkpoint
+  (`trained_models/*.ckpt`, :22-143). It stores tensors under names like
+  `f.enc.0.conv_signal.double_conv.0.weight`, already in the port's layouts
+  (OIHW convs, `[I, O, k, k]` transposed convs; models/blocks.py), so they
+  are taken as they are, with no round trip through the JAX package's HWIO.
+- The trainer's own checkpoints (:149-308): a train state (params, Adam
+  state, epoch, global step) as one torch file `step_<n>/state.pt`, with
+  the JAX package's `manifest.json` semantics (`update_topk`, `best_step`,
+  `latest_step`, `manifest_extra`). Orbax directories are not read here.
+- `save_params_npz`, the flat `p0 ... pN` npz in the JAX package's leaf
+  order and HWIO layout, which `helmnet_tpu.train.checkpoint.load_params_npz`
+  and the port's `weights.load_params_npz` both read.
 """
 
 from __future__ import annotations
 
+import json
+import math
+import os
+import shutil
 import sys
 import types
 from typing import Any, Tuple
 
+import numpy as np
 import torch
 
 from ..core.config import Config, ModelConfig
@@ -132,3 +142,138 @@ def load_reference_checkpoint(path: str, device=None) -> Tuple[dict, Config]:
     )
     params = params_from_torch_state_dict(sd, cfg.model, device=device)
     return params, cfg
+
+
+# ---------------------------------------------------------------------------
+# The trainer's checkpoints
+# ---------------------------------------------------------------------------
+
+STATE_FILE = "state.pt"
+
+
+def _step_dir(directory: str, step: int) -> str:
+    return os.path.join(os.path.abspath(directory), f"step_{step}")
+
+
+def save_checkpoint(directory: str, step: int, state: dict) -> None:
+    """Save a train state (a dict of tensors, nested dicts and lists of
+    them, optimizer state dicts and numbers) as `step_<step>/state.pt`."""
+    path = _step_dir(directory, step)
+    os.makedirs(path, exist_ok=True)
+    torch.save(state, os.path.join(path, STATE_FILE))
+
+
+def restore_checkpoint(directory: str, step: int, device=None) -> dict:
+    """The train state saved at `step`, its tensors on `device`."""
+    dev = resolve_device(device)
+    return torch.load(os.path.join(_step_dir(directory, step), STATE_FILE),
+                      map_location=dev, weights_only=True)
+
+
+def _manifest_path(directory: str) -> str:
+    return os.path.join(directory, "manifest.json")
+
+
+def _load_manifest(directory: str) -> dict:
+    path = _manifest_path(directory)
+    if os.path.exists(path):
+        with open(path) as f:
+            return json.load(f)
+    return {"scores": {}, "last": None, "scheduler": {}}
+
+
+def _write_manifest(directory: str, manifest: dict) -> None:
+    with open(_manifest_path(directory), "w") as f:
+        json.dump(manifest, f, indent=1)
+
+
+def update_topk(
+    directory: str,
+    step: int,
+    val_loss: float,
+    state,
+    k: int = 3,
+    extra: dict | None = None,
+) -> None:
+    """ModelCheckpoint(save_top_k=k, monitor='val_loss', save_last=True)
+    semantics (reference train.py:90-97): save this step, keep the k best
+    steps by val_loss plus the most recent one, delete the rest.
+
+    `extra` (JSON-serializable, e.g. plateau-scheduler state) is recorded in
+    the manifest per step so multi-segment runs resume the LR schedule.
+    """
+    save_checkpoint(directory, step, state)
+    manifest = _load_manifest(directory)
+    score = float(val_loss)
+    if not math.isfinite(score):
+        score = float("1e30")  # divergent val: eligible for pruning, not top-k
+    manifest["scores"][str(step)] = score
+    manifest["last"] = step
+    if extra is not None:
+        manifest.setdefault("scheduler", {})[str(step)] = extra
+    ranked = sorted(manifest["scores"].items(), key=lambda kv: kv[1])
+    keep = {int(s) for s, _ in ranked[:k]} | {step}
+    for name in os.listdir(directory):
+        if not name.startswith("step_"):
+            continue
+        try:
+            s = int(name.split("_", 1)[1])
+        except ValueError:
+            continue
+        if s not in keep and str(s) in manifest["scores"]:
+            shutil.rmtree(os.path.join(directory, name), ignore_errors=True)
+    manifest["scores"] = {
+        s: v for s, v in manifest["scores"].items() if int(s) in keep
+    }
+    manifest["scheduler"] = {
+        s: v
+        for s, v in manifest.get("scheduler", {}).items()
+        if int(s) in keep
+    }
+    _write_manifest(directory, manifest)
+
+
+def best_step(directory: str):
+    """Step with the lowest recorded val_loss (restore-best for eval)."""
+    manifest = _load_manifest(directory)
+    if not manifest["scores"]:
+        return None
+    return int(min(manifest["scores"].items(), key=lambda kv: kv[1])[0])
+
+
+def manifest_extra(directory: str, step: int) -> dict | None:
+    return _load_manifest(directory).get("scheduler", {}).get(str(step))
+
+
+def latest_step(directory: str):
+    if not os.path.isdir(directory):
+        return None
+    steps = []
+    for name in os.listdir(directory):
+        if name.startswith("step_"):
+            try:
+                steps.append(int(name.split("_", 1)[1]))
+            except ValueError:
+                pass
+    return max(steps) if steps else None
+
+
+def save_params_npz(path: str, params) -> None:
+    """Flat-npz export of the port's params in the JAX package's leaf order
+    and layouts (HWIO convs, spatially flipped HWIO transposed convs): the
+    inverse of `weights.load_params_npz`, read by the JAX package's
+    `load_params_npz` as its own."""
+    from ..models.blocks import torch_conv_to_hwio, torch_convtranspose_to_hwio
+    from ..models.hybridnet import iter_leaves
+
+    def jax_layout(leaf_path: str, t: torch.Tensor) -> np.ndarray:
+        a = t.detach().cpu().numpy().astype(np.float32)
+        if a.ndim != 4:
+            return a
+        if leaf_path.startswith("up["):
+            return torch_convtranspose_to_hwio(a)
+        return torch_conv_to_hwio(a)
+
+    np.savez_compressed(path, **{
+        f"p{i}": jax_layout(p, t) for i, (p, t) in enumerate(iter_leaves(params))
+    })

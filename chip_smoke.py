@@ -8,8 +8,10 @@ Drives the learned 2D solve at 96^2 x batch 32 x 500 iterations through
 channel-packed solve at 256^2 x 16 x 50 through `rollout_packed` with the
 packed fused DoubleConv kernel K3, the FD-stencil residual kernels K2a-c
 at bench.py's 512^2 x 8, batched GMRES on the stencil operator at
-256^2 x 16, and unsupervised replay-buffer training at 96^2 x 32 with 10
-unrolled steps, and checks them all:
+256^2 x 16, unsupervised replay-buffer training at 96^2 x 32 with 10 unrolled
+steps, and the classical solvers (learned-preconditioned FGMRES,
+two-level, deflated GMRES, hybrid, `solve_auto`, `cli/solve`) with the
+tpu_r2c weights, and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -98,7 +100,34 @@ unrolled steps, and checks them all:
    leaf moved, and no launch of K1, K2a-c or K3; the wall of a train step
    (median of 5 after the first), device time, busy share and busiest
    kernels over 5 steps (torch.profiler), the peak memory of a step with
-   remat off and on, and `cli/train --smoke` on the card.
+   remat off and on, and `cli/train --smoke` on the card;
+12. the classical 2D solvers with the trained tpu_r2c weights
+   (trained_models/tpu_r2c_best.npz), K1 in every learned part and K2a in
+   the deflated solve on the stencil operator, each path's launches counted
+   from 0: (a) a 'pallas' rollout of the first 4 maps of
+   datasets/eval256/maps.npz, 100 iterations, exactly 14 x 100 K1
+   launches, every rmse falling by CONV_FACTOR or more and the first 4
+   within rtol 0.05 of the CPU path; (b) `solve_hybrid` on the first 8
+   maps of the 96^2 test set (100 learned iterations, restart 50), with the
+   bare and the CSLP polish: exactly 14 x 100 K1 launches each, the warm
+   rmse equal to the rollout's best, reported residuals equal to the true
+   ones (rtol 1e-3; the CSLP polish at tests/test_hybrid.py:101's
+   tolerance) and none above the warm start's; (c) `solve_fgmres_learned`
+   on map 0 (inner 20, restart 10, tol 1e-5) with the device and the host
+   cycle: exactly 14 x 20 K1 launches per preconditioner application, the
+   final residual equal to the true one (rtol 1e-3), no history rising, and
+   both cycles reaching the tolerance at the same solution (2e-2 max|u|);
+   (d) `solve_auto` on tests/test_solve_auto.py's strong-contrast 512^2
+   map: the two-level plan with the learned smoother, AUTO_CYCLES outer
+   cycles, exactly 14 x 20 K1 launches per smoother application, the
+   residual falling at every cycle and the last equal to the true one;
+   (e) `solve_helmholtz_deflated` on the order-4 stencil operator for map 0
+   of datasets/eval256 (restart 30, k 10): exactly one K2a launch per
+   matvec and no other launch, the first cycle within rtol 1e-6 of the
+   plain matvec's, the last residual equal to the true one; (f) `cli/solve`
+   on the 96^2 test set with the npz, rc 0 and the learned plan. Each of
+   (b)-(e) is timed: the wall of 3 solves after the counted one (median),
+   and one profiled solve's device time, busy share and busiest kernels.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -153,6 +182,20 @@ TRAIN_LOSS_RTOL = 1e-3  # tests/test_parity.py:182-190: loss rel 1e-3,
 TRAIN_GRAD_RTOL = 2e-3  # each grad leaf atol 2e-3 * max|ref|, rtol 2e-3
 TRAIN_BUFFER_RTOL = 1e-5  # device vs host buffer (test_device_buffer.py:78)
 TRAIN_TIMED, TRAIN_PROFILE_STEPS = 5, 5
+R2C_NPZ = "trained_models/tpu_r2c_best.npz"  # checkpoints/tpu_r2c, best step
+CONV_MAPS, CONV_ITERS = 4, 100  # 12a: the first maps of datasets/eval256
+CONV_FACTOR = 30.0  # 12a: first rmse over the last, per map; 33.71 at worst on an H100
+HYBRID_MAPS, HYBRID_LEARNED = 8, 100  # 12b: solve_hybrid's default iterations
+FGMRES_INNER, FGMRES_RESTART, FGMRES_TOL = 20, 10, 1e-5  # 12c
+AUTO_GRID, AUTO_CONTRAST = 512, 1.0  # 12d: tests/test_solve_auto.py's _sos(512, 1.0)
+AUTO_CYCLES = 3  # 12d: outer cycles (max_restarts), to stay inside the time limit
+DEFL_RESTART, DEFL_K = 30, 10  # 12e
+RELRES_RTOL = 1e-3  # reported against true residual, tests/test_fgmres.py:56
+SOLUTION_ATOL = 2e-2  # * max|u|: two FGMRES solutions, tests/test_fgmres.py:73
+# reported against the float64 true residual of the CSLP polish, whose
+# defect correction rounds b - A x0 once: tests/test_hybrid.py:101
+HYBRID_CSLP_RTOL, HYBRID_CSLP_ATOL = 5e-2, 1e-6
+CLASSICAL_TIMED = 3  # 12b-e: solves timed after the counted one
 
 
 def log(msg: str) -> None:
@@ -416,6 +459,15 @@ def stencil_csr(op, k_sq: torch.Tensor) -> torch.Tensor:
         size=m.shape, check_invariants=True).to(k_sq.device)
 
 
+def reset_counts() -> None:
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.double_conv import fused_double_conv
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
+
+    sr.reset_launches()
+    fused_double_conv.launches = packed_double_conv.launches = 0
+
+
 def train_phase(dev, cfg, params, hand_kernels) -> dict:
     """Phase 11: the unsupervised training path on the card, in 'xla' mode
     (cuDNN convs, the JAX package's training mode), from the trained
@@ -429,9 +481,6 @@ def train_phase(dev, cfg, params, hand_kernels) -> dict:
     from helmnet_tpu_torch.cli import train as train_cli
     from helmnet_tpu_torch.data.ellipses import load_maps
     from helmnet_tpu_torch.models.hybridnet import iter_leaves, map_leaves
-    from helmnet_tpu_torch.ops import stencil_residual as sr
-    from helmnet_tpu_torch.ops.double_conv import fused_double_conv
-    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
     from helmnet_tpu_torch.train.device_buffer import FIELDS
     from helmnet_tpu_torch.train.loop import Trainer, unrolled_loss
     from helmnet_tpu_torch.train.replay import ExperienceBatch
@@ -501,8 +550,7 @@ def train_phase(dev, cfg, params, hand_kernels) -> dict:
     # with every hand kernel's count set to 0 just before
     train = Trainer(cfg, params=params, device=dev, device_buffer=True)
     train.fill_buffer(maps)
-    sr.reset_launches()
-    fused_double_conv.launches = packed_double_conv.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     epochs = [train.training_epoch(maps) for _ in range(2)]
@@ -592,6 +640,359 @@ def train_phase(dev, cfg, params, hand_kernels) -> dict:
         "step_wall_s": step_wall, "experience_steps_per_s": bs * unroll / step_wall,
         "profile": prof, "peak_memory": peaks, "smoke": smoke, "seconds": seconds,
     }
+
+
+def solve_times(run, short_run, short: str) -> dict:
+    """Phase 12's times of a solve: the wall (host clock around a
+    synchronised call, the median of CLASSICAL_TIMED calls after the counted
+    first one), then `short_run`, the same solve cut short as `short` says
+    (a whole solve makes up to a million launches, and tracing them takes
+    minutes), once without and once with torch.profiler for its device
+    time, busy share and busiest kernels."""
+    walls = []
+    for _ in range(CLASSICAL_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    prof = profile_steps(lambda _: short_run(), 1)
+    return {"wall_s": float(np.median(walls)), "walls_s": walls, "profiled": short,
+            "device_ms": prof["device_ms_per_step"], "busy_share": prof["busy_share"],
+            "profile_wall_ms": prof["wall_ms_per_step"], "top": prof["top"][:6]}
+
+
+def log_times(name: str, t: dict) -> None:
+    log(f"phase {name} wall {t['wall_s']:.4f} s (median of {CLASSICAL_TIMED} after the "
+        f"counted one; {[round(w, 4) for w in t['walls_s']]}); profiled {t['profiled']}: "
+        f"device {t['device_ms']:.2f} ms of {t['profile_wall_ms']:.1f} ms wall, busy "
+        f"share {t['busy_share']:.4f}")
+    for k in t["top"][:4]:
+        print(f"    {k['device_ms_per_step']:.3f} ms {k['calls_per_step']:7.0f} calls  "
+              f"{k['name']}", flush=True)
+
+
+def host_relres64(cfg, sos, src, field, warm, op, k_sq, mode):
+    """Per map: ||b - A x|| / ||b|| in float64 on the host (the dense
+    per-axis operators of solvers/precond._HostOperator), and the f32
+    rounding of the defect b - A x0 that a CSLP polish starts from, in
+    units of ||b|| (A x0 on the card against float64)."""
+    from helmnet_tpu_torch.ops.spectral import helmholtz_residual
+    from helmnet_tpu_torch.solvers.precond import _HostOperator
+
+    g = cfg.geometry
+    as64 = lambda t: t.detach().cpu().numpy().astype(np.float64)
+    cx = lambda a: a[..., 0] + 1j * a[..., 1]
+    r_card = as64(helmholtz_residual(op, warm, k_sq, src, mode))
+    true, err = [], []
+    for i in range(len(sos)):
+        h, w = sos[i].shape
+        host = _HostOperator(h, w, g.pml_size, g.sigma_max, cfg.k0,
+                             (cfg.source.omega / sos[i].astype(np.float64)) ** 2)
+        b = cx(as64(src[i]))
+        nb = np.linalg.norm(b)
+        true.append(np.linalg.norm(b - host(cx(as64(field[i])))) / nb)
+        err.append(np.linalg.norm(cx(r_card[i]) - (host(cx(as64(warm[i]))) - b)) / nb)
+    return np.asarray(true), np.asarray(err)
+
+
+def strong_contrast_sos(n: int, contrast: float) -> np.ndarray:
+    """The 2D map of tests/test_solve_auto.py:16: sound speed 1 with a
+    central block of 1 + contrast * uniform noise (seed 0)."""
+    sos = np.ones((n, n), np.float32)
+    c = (slice(n // 4, 3 * n // 4),) * 2
+    sos[c] = 1.0 + contrast * np.random.default_rng(0).random(sos[c].shape, np.float32)
+    return sos
+
+
+def classical_phase(dev, cfg, cfg_kernel, hand_kernels) -> dict:
+    """Phase 12: the classical 2D solvers with the trained tpu_r2c weights,
+    K1 ('pallas' mode) inside every learned part and K2a inside the
+    deflated solve on the stencil operator. Every gate failure exits; the
+    returned dict holds what was measured. `hand_kernels()` reads the
+    launch counts of K2a, K2b, K2c, K1 and K3."""
+    import contextlib
+    import io
+
+    from helmnet_tpu_torch.cli import solve as solve_cli
+    from helmnet_tpu_torch.data.ellipses import load_maps
+    from helmnet_tpu_torch.models.hybridnet import params_to
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.source import point_source_map
+    from helmnet_tpu_torch.ops.spectral import helmholtz_residual, make_operator
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+    from helmnet_tpu_torch.solvers.auto import choose_solver, solve_auto
+    from helmnet_tpu_torch.solvers.deflation import gmres_deflated, solve_helmholtz_deflated
+    from helmnet_tpu_torch.solvers.fgmres import solve_fgmres_learned
+    from helmnet_tpu_torch.solvers.hybrid import solve_hybrid
+    from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
+    from helmnet_tpu_torch.weights import load_params_npz
+
+    t0 = time.perf_counter()
+    out = {}
+    steps = 14  # K1 launches a learned step (phase 4)
+    params = load_params_npz(R2C_NPZ, cfg, device=dev)
+
+    def with_grid(c, n):
+        return c.replace(geometry=dataclasses.replace(c.geometry, domain_size=n))
+
+    def relres(op, k_sq, src, field, mode) -> np.ndarray:
+        """||b - A x|| / ||b|| per sample, on the card with the plain
+        spectral operator: field, src [B, H, W, 2], k_sq [B, H, W]."""
+        r = helmholtz_residual(op, field, k_sq, src, mode)
+        num = torch.linalg.vector_norm(r.reshape(len(r), -1), dim=1)
+        return (num / torch.linalg.vector_norm(src.reshape(len(src), -1), dim=1)).cpu().numpy()
+
+    def want_k1(n_launch):
+        return (0, 0, 0, n_launch, 0)
+
+    # -- 12a: convergence at 256^2 -------------------------------------------
+    cfg256 = with_grid(cfg_kernel, PACK_GRID)
+    maps256 = load_maps("datasets/eval256/maps.npz")[:CONV_MAPS]
+    solver256 = IterativeSolver(cfg256, params=params, device=dev)
+    src256 = solver256.source.expand(CONV_MAPS, -1, -1, -1)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    conv = rollout(params, solver256.op, src256, maps256, cfg=cfg256,
+                   num_iterations=CONV_ITERS, device=dev)
+    torch.cuda.synchronize()
+    conv_s = time.perf_counter() - t
+    counts = hand_kernels()
+    rmse = conv["rmse"].cpu().numpy()
+    factor = rmse[0] / rmse[-1]
+    cpu = rollout(params_to(params, "cpu"), solver256.op.to("cpu"), src256.cpu(), maps256,
+                  cfg=cfg256, num_iterations=4, device="cpu")["rmse"].numpy()
+    early = np.abs(rmse[:4] - cpu) / cpu
+    log(f"phase 12a tpu_r2c rollout {CONV_MAPS} x {PACK_GRID}^2 x {CONV_ITERS} "
+        f"('pallas'): {conv_s:.2f} s, launches K2a/K2b/K2c/K1/K3 {counts}; rmse "
+        f"{rmse[0].tolist()} -> {rmse[-1].tolist()}, factor {factor.min():.2f} (worst), "
+        f"{factor.mean():.2f} (mean); bound {CONV_FACTOR}; first 4 against the CPU "
+        f"path max rel diff {early.max():.3e} (rtol {EARLY_RTOL})")
+    if counts != want_k1(steps * CONV_ITERS):
+        fail(f"the 256^2 rollout launched {counts}")
+    if not np.all(np.isfinite(rmse)) or not factor.min() >= CONV_FACTOR:
+        fail("the tpu_r2c rollout at 256^2 does not converge by the stated factor")
+    if not early.max() <= EARLY_RTOL:
+        fail("the 256^2 rollout on the card disagrees with the CPU path")
+    out["convergence_256"] = {"rmse_first": rmse[0].tolist(), "rmse_last": rmse[-1].tolist(),
+                              "factor": factor.tolist(), "seconds": conv_s,
+                              "cpu_rel_diff": float(early.max()), "k1_launches": counts[3]}
+
+    # -- 12b: solve_hybrid at 96^2 -------------------------------------------
+    sos96 = np.load("datasets/splitted_96/testset.npz")["maps"][:HYBRID_MAPS]
+    solver96 = IterativeSolver(cfg_kernel, params=params, device=dev)
+    op96, mode = solver96.op, cfg_kernel.operator_mode
+    src96 = solver96.source.expand(HYBRID_MAPS, -1, -1, -1).contiguous()
+    k_sq96 = (cfg.source.omega / torch.tensor(sos96, device=dev)) ** 2
+    warm = rollout(params, op96, src96, sos96, cfg=cfg_kernel,
+                   num_iterations=HYBRID_LEARNED, collect=("rmse", "best"), device=dev)
+    warm_rel = relres(op96, k_sq96, src96, warm["best_wavefield"], mode)
+    out["hybrid"] = {}
+    for precond in ("none", "shifted_laplace"):
+        def run(maps=HYBRID_MAPS):
+            return solve_hybrid(params, op96, src96[:maps], sos96[:maps], cfg=cfg_kernel,
+                                learned_iterations=HYBRID_LEARNED, precond=precond,
+                                device=dev)
+
+        reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        counts = hand_kernels()
+        final = res.final_relres.cpu().numpy()
+        if precond == "none":  # the reported norm is ||b - A x|| itself
+            true = relres(op96, k_sq96, src96, res.wavefield, mode)
+            limit = RELRES_RTOL * true
+        else:
+            # the CSLP polish reports ||b_eff - A M^-1 y||, b_eff = b - A x0
+            # rounded to f32 once, which near 1e-6 is the size of the residual
+            # itself; an f32 residual on the card has that floor as well. So
+            # held in float64 on the host at tests/test_hybrid.py:101's
+            # tolerance, with the rounding of b_eff printed beside it
+            true, beff_err = host_relres64(cfg, sos96, src96, res.wavefield,
+                                           warm["best_wavefield"], op96, k_sq96, mode)
+            limit = HYBRID_CSLP_RTOL * np.maximum(final, 1e-6) + HYBRID_CSLP_ATOL
+            log(f"phase 12b CSLP polish per map: reported {final.tolist()}, float64 "
+                f"{true.tolist()}, rounding of b - A x0 {beff_err.tolist()}")
+        gap = np.abs(final - true) / true
+        true_ok = np.all(np.abs(final - true) <= limit)
+        warm_equal = bool(torch.equal(res.warm_rmse, warm["best_rmse"]))
+        log(f"phase 12b solve_hybrid ({HYBRID_MAPS} x {GRID}^2, {HYBRID_LEARNED} learned "
+            f"iterations, polish '{precond}'): launches K2a/K2b/K2c/K1/K3 {counts}; warm "
+            f"rmse equal to the rollout's best: {warm_equal}; relres warm "
+            f"{warm_rel.max():.3e} -> final {final.max():.3e} (worst), GMRES iterations "
+            f"{res.gmres_iterations.tolist()}; reported against true max rel diff "
+            f"{gap.max():.3e}")
+        if counts != want_k1(steps * HYBRID_LEARNED):
+            fail(f"solve_hybrid launched {counts}")
+        if not warm_equal:
+            fail("solve_hybrid's warm rmse is not the rollout's best rmse")
+        if not (np.all(np.isfinite(final)) and true_ok):
+            fail("solve_hybrid's reported residuals are not the true ones")
+        if not np.all(final <= warm_rel * (1 + MONOTONE_SLACK)):
+            fail("solve_hybrid's polish ended above its warm start")
+        times = solve_times(run, lambda: run(1), "on map 0 alone")
+        log_times(f"12b solve_hybrid '{precond}'", times)
+        out["hybrid"][precond] = {"final_relres": final.tolist(), "warm_relres": warm_rel.tolist(),
+                                  "gmres_iterations": res.gmres_iterations.tolist(),
+                                  "k1_launches": counts[3], "true_rel_diff": float(gap.max()),
+                                  **times}
+
+    # -- 12c: solve_fgmres_learned at 96^2, device and host cycles ------------
+    src0 = solver96.source[0]
+    k_sq0 = k_sq96[:1]
+    out["fgmres"] = {}
+    for host in (False, True):
+        def run(cycles=10, host=host):
+            return solve_fgmres_learned(params, op96, src0, sos96[0], cfg=cfg_kernel,
+                                        inner_iterations=FGMRES_INNER,
+                                        restart=FGMRES_RESTART, max_restarts=cycles,
+                                        tol=FGMRES_TOL, host_arnoldi=host, device=dev)
+
+        reset_counts()
+        res = run()
+        torch.cuda.synchronize()
+        counts = hand_kernels()
+        norms = res.residual_norms.numpy()
+        true = relres(op96, k_sq0, src0[None], res.wavefield[None], mode)[0]
+        gap = float(abs(norms[-1] - true) / true)
+        rise = float(np.max(norms[1:] / norms[:-1]))
+        kind = "host" if host else "device"
+        log(f"phase 12c solve_fgmres_learned ({kind} cycle, inner {FGMRES_INNER}, restart "
+            f"{FGMRES_RESTART}, tol {FGMRES_TOL}): {res.iterations} preconditioner "
+            f"applications, launches K2a/K2b/K2c/K1/K3 {counts}; relres "
+            f"{[float(f'{x:.4e}') for x in norms]}; reported against true rel diff "
+            f"{gap:.3e} (rtol {RELRES_RTOL}); largest rise {rise:.6f}")
+        if counts != want_k1(steps * FGMRES_INNER * res.iterations):
+            fail(f"solve_fgmres_learned launched {counts}")
+        if not (np.all(np.isfinite(norms)) and gap <= RELRES_RTOL):
+            fail("solve_fgmres_learned's reported residual is not the true one")
+        if rise > 1 + MONOTONE_SLACK:
+            fail("solve_fgmres_learned's residual history rises")
+        times = solve_times(run, lambda: run(1), "its first cycle")
+        log_times(f"12c solve_fgmres_learned {kind} cycle", times)
+        out["fgmres"][kind] = {"residual_norms": norms.tolist(),
+                               "applications": res.iterations, "k1_launches": counts[3],
+                               "true_rel_diff": gap, "x": res.wavefield, **times}
+    # the learned preconditioner returns its best iterate, an argmin over
+    # the rollout, so a round-off apart bases (MGS against CGS2) can pick
+    # another iterate: the histories of the two kinds part after the first
+    # Krylov step (6% after one cycle on the CPU path). What must agree is
+    # the solve: both reach the tolerance, at the same solution
+    dev_x, host_x = (out["fgmres"][k].pop("x") for k in ("device", "host"))
+    sol_gap = float((dev_x - host_x).abs().max() / host_x.abs().max())
+    finals = [out["fgmres"][k]["residual_norms"][-1] for k in ("device", "host")]
+    log(f"phase 12c device against host cycle: final relres {finals}, solutions "
+        f"max|diff| {sol_gap:.3e} of max|u| (atol {SOLUTION_ATOL} max|u|)")
+    if not (max(finals) < FGMRES_TOL and sol_gap <= SOLUTION_ATOL):
+        fail("FGMRES's device and host cycles do not reach the same solution")
+
+    # -- 12d: solve_auto at 512^2: two-level with the learned smoother --------
+    n, g = AUTO_GRID, cfg.geometry
+    cfg512 = with_grid(cfg_kernel, n)
+    sos512 = strong_contrast_sos(n, AUTO_CONTRAST)
+    loc = tuple(int(c * n / GRID) for c in cfg.source.location)  # as cli/solve
+    s = cfg.source
+    src512 = point_source_map(n, n, loc, s.amplitude, s.phase, s.omega)
+    plan = choose_solver(sos512, cfg=cfg512, params=params)
+    log(f"phase 12d solve_auto at {n}^2 (contrast {sos512.max() / sos512.min():.3f}): plan "
+        f"{plan.method}, kwargs {plan.kwargs}; max_restarts {AUTO_CYCLES}")
+    if plan.method != "two_level" or plan.kwargs.get("smoother") != "learned":
+        fail(f"the {n}^2 strong-contrast plan is {plan.method}, not two-level learned")
+    def run(cycles=AUTO_CYCLES):
+        return solve_auto(src512, sos512, cfg=cfg512, params=params, device=dev,
+                          max_restarts=cycles)[0]
+
+    reset_counts()
+    t = time.perf_counter()
+    res = run()
+    torch.cuda.synchronize()
+    auto_s = time.perf_counter() - t
+    counts = hand_kernels()
+    norms = res.residual_norms.numpy()
+    k_sq512 = (s.omega / torch.tensor(sos512, device=dev)) ** 2
+    op512 = make_operator(n, n, g.pml_size, g.sigma_max, cfg.k0, device=dev)
+    true = relres(op512, k_sq512[None], torch.tensor(src512, device=dev)[None],
+                  res.wavefield[None], cfg512.operator_mode)[0]
+    gap = float(abs(norms[-1] - true) / true)
+    smooth_iters = plan.kwargs.get("smoother_iterations", 20)
+    log(f"phase 12d solve_auto: {auto_s:.2f} s, {res.iterations} smoother applications, "
+        f"launches K2a/K2b/K2c/K1/K3 {counts}; relres {[float(f'{x:.4e}') for x in norms]}; "
+        f"reported against true rel diff {gap:.3e} (rtol {RELRES_RTOL})")
+    if counts != want_k1(steps * smooth_iters * res.iterations):
+        fail(f"solve_auto's two-level solve launched {counts}")
+    if not (np.all(np.isfinite(norms)) and np.all(np.diff(norms) < 0)):
+        fail("the two-level residual does not fall at every cycle")
+    if not gap <= RELRES_RTOL:
+        fail("the two-level solve's reported residual is not the true one")
+    times = solve_times(run, lambda: run(1), "its first cycle")
+    log_times("12d solve_auto two-level", times)
+    out["auto_512"] = {"plan": plan.method, "kwargs": {k: str(v) for k, v in plan.kwargs.items()},
+                       "residual_norms": norms.tolist(), "applications": res.iterations,
+                       "k1_launches": counts[3], "true_rel_diff": gap,
+                       "seconds_first": auto_s, **times}
+    del op512
+
+    # -- 12e: deflated GMRES on the stencil operator: K2a --------------------
+    st = make_stencil_operator(PACK_GRID, PACK_GRID, g.pml_size, g.sigma_max, cfg.k0,
+                               order=4, device=dev)
+    k_sq_st = (s.omega / torch.tensor(maps256[0], device=dev)) ** 2
+    src_st = src256[0]
+    def run(cycles=20):
+        return solve_helmholtz_deflated(st, k_sq_st, src_st, restart=DEFL_RESTART,
+                                        k=DEFL_K, max_cycles=cycles, precond="none",
+                                        device=dev)
+
+    reset_counts()
+    res = run()
+    torch.cuda.synchronize()
+    counts = hand_kernels()
+    cycles = len(res.residual_norms) - 1
+    matvecs = 1 + res.iterations + cycles  # first residual, Arnoldi steps, a residual a cycle
+
+    def plain_mv(v):
+        p = torch.view_as_real(v)
+        return torch.complex(*sr.residual_planes_plain(st, p[..., 0], p[..., 1], k_sq_st))
+
+    b_st = torch.complex(src_st[..., 0], src_st[..., 1]).contiguous()
+    plain = gmres_deflated(plain_mv, b_st, restart=DEFL_RESTART, k=DEFL_K, max_cycles=1)
+    head = res.residual_norms[:2]
+    plain_gap = float(np.max(np.abs(head - plain.residual_norms[:2]) / head))
+    x = torch.view_as_complex(res.x.contiguous())
+    true = float(torch.linalg.vector_norm(b_st - plain_mv(x)))
+    gap = float(abs(res.residual_norms[-1] - true) / true)
+    rel = res.residual_norms / res.residual_norms[0]
+    log(f"phase 12e solve_helmholtz_deflated (StencilPML order 4, {PACK_GRID}^2, restart "
+        f"{DEFL_RESTART}, k {DEFL_K}): {cycles} cycles, {res.iterations} Arnoldi steps, "
+        f"launches K2a/K2b/K2c/K1/K3 {counts} (expected {matvecs} K2a); relres "
+        f"{rel[1]:.4e} after a cycle, {rel[-1]:.4e} at the end; first cycle against the "
+        f"plain matvec max rel diff {plain_gap:.3e} (rtol {GMRES_PLAIN_RTOL}); reported "
+        f"against true rel diff {gap:.3e} (rtol {RELRES_RTOL})")
+    if counts != (matvecs, 0, 0, 0, 0):
+        fail(f"the deflated solve launched {counts}, expected ({matvecs}, 0, 0, 0, 0)")
+    if not (np.all(np.isfinite(res.residual_norms)) and plain_gap <= GMRES_PLAIN_RTOL):
+        fail("the deflated solve with K2a disagrees with the plain matvec")
+    if not gap <= RELRES_RTOL:
+        fail("the deflated solve's reported residual is not the true one")
+    times = solve_times(run, lambda: run(5), "its first 5 cycles")
+    log_times("12e solve_helmholtz_deflated", times)
+    out["deflated"] = {"residual_norms": res.residual_norms.tolist(), "cycles": cycles,
+                       "iterations": res.iterations, "k2a_launches": counts[0],
+                       "plain_rel_diff": plain_gap, "true_rel_diff": gap, **times}
+
+    # -- 12f: cli/solve on the card ------------------------------------------
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = solve_cli.main(["--sos", "datasets/splitted_96/testset.npz",
+                             "--checkpoint", R2C_NPZ])
+    lines = text.getvalue().strip().splitlines()
+    log(f"phase 12f cli/solve on the card: rc {rc}, {lines[0]}; {lines[-1]}")
+    if rc != 0 or lines[0] != "plan: learned":
+        fail("cli/solve did not solve with the learned plan on the card")
+    out["cli_solve"] = lines
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 12 done in {out['seconds']:.1f} s")
+    return out
 
 
 def main() -> int:
@@ -1077,8 +1478,7 @@ def main() -> int:
 
     chains = {}
     for key in ("K2b", "K2c"):
-        sr.reset_launches()
-        fused_double_conv.launches = packed_double_conv.launches = 0
+        reset_counts()
         torch.cuda.synchronize()
         c_kernel = chain(entries[key][0])
         torch.cuda.synchronize()
@@ -1116,8 +1516,7 @@ def main() -> int:
     k_sq256, _ = get_initials(torch.tensor(maps, device=dev), cfg.source.omega)
     b256 = torch.complex(src256[..., 0], src256[..., 1]).contiguous()
     gm = dict(restart=GMRES_RESTART, max_restarts=GMRES_CYCLES, device=dev)
-    sr.reset_launches()
-    fused_double_conv.launches = packed_double_conv.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = solve_helmholtz_batch(st256, k_sq256, src256, **gm)
@@ -1256,6 +1655,9 @@ def main() -> int:
     # -- 11. training ----------------------------------------------------------
     training = train_phase(dev, cfg, params, launch_counts)
 
+    # -- 12. the classical solvers with the tpu_r2c weights ----------------
+    classical = classical_phase(dev, cfg, cfg_kernel, launch_counts)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -1272,6 +1674,16 @@ def main() -> int:
         "bound_by": "operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
         "library_ms": total("library_ms"),
         "tiles": {r["name"]: "x".join(map(str, r["tile"])) for r in rows},
+        # each path's count, set to 0 just before it and read just after
+        "launches_by_path": {
+            "phase 4 rollout 96^2 x 32 x 500": launches,
+            "12a rollout 256^2 x 4 x 100": classical["convergence_256"]["k1_launches"],
+            **{f"12b solve_hybrid '{p}'": classical["hybrid"][p]["k1_launches"]
+               for p in classical["hybrid"]},
+            **{f"12c solve_fgmres_learned {k}": classical["fgmres"][k]["k1_launches"]
+               for k in classical["fgmres"]},
+            "12d solve_auto two-level 512^2": classical["auto_512"]["k1_launches"],
+        },
     }, {
         "name": "packed_double_conv",
         "route": "cuda",
@@ -1301,6 +1713,10 @@ def main() -> int:
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],  # cuSPARSE on the complex64 CSR
         "variant": row["variant"],  # the kernel's instance
+        **({"launches_by_path": {
+            "phase 10 GMRES 16 x 256^2": launches_k2,
+            "12e solve_helmholtz_deflated 256^2": classical["deflated"]["k2a_launches"],
+        }} if name == "residual_planes" else {}),
     } for name, replaces, launches_k2, row in (
         # per call on each kernel's main path: K2a at GMRES's matvec
         # (16 x 256^2 complex64, no source), K2b and K2c at 512^2 x 8
@@ -1341,7 +1757,7 @@ def main() -> int:
                            "scipy_err": float(scipy_err),
                            "scipy_scale": float(scipy_scale),
                            "profile": gmres_profile},
-                       "training": training,
+                       "training": training, "classical": classical,
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

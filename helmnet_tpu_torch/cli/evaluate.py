@@ -4,6 +4,10 @@ evaluate.py + test_step/test_epoch_end).
     python -m helmnet_tpu_torch.cli.evaluate --checkpoint model.ckpt \\
         --testset datasets/eval256/maps.npz [--platform cpu]
 
+`--checkpoint` takes a reference `.ckpt` or a flat params `.npz` (for an
+orbax run, the file `tools/export_orbax_npz.py` writes, e.g.
+trained_models/tpu_r2c_best.npz); an orbax directory is refused.
+
 Runs the learned solver over a test set on the card (`--platform cuda`,
 the default) or the CPU, saving the artifacts the reference produces
 (hybridnet.py:316-330):
@@ -27,7 +31,7 @@ import numpy as np
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", type=str, required=True,
-                   help=".ckpt (reference torch) or orbax dir")
+                   help=".ckpt (reference torch) or params .npz")
     p.add_argument("--testset", type=str, required=True, help="npz of sos maps")
     p.add_argument("--iterations", type=int, default=1000)
     p.add_argument("--batch", type=int, default=32)
@@ -47,16 +51,17 @@ def main(argv=None):
     from ..core.device import resolve_device
     from ..data.ellipses import load_maps
     from ..solvers.iterative import IterativeSolver
+    from ..weights import ORBAX_REFUSAL
 
     if os.path.isdir(args.checkpoint):
-        raise SystemExit(
-            f"{args.checkpoint} is a directory (an orbax checkpoint); the "
-            "PyTorch port reads reference .ckpt files only so far (ROADMAP "
-            "Queue A item 3: orbax checkpoints)")
+        raise SystemExit(f"{args.checkpoint} {ORBAX_REFUSAL}")
     # cuda goes through the default, which raises without a card
     device = resolve_device(None if args.platform == "cuda" else args.platform)
-    solver = IterativeSolver.from_reference_checkpoint(args.checkpoint,
-                                                       device=device)
+    if args.checkpoint.endswith(".npz"):
+        solver = IterativeSolver.from_params_npz(args.checkpoint, device=device)
+    else:
+        solver = IterativeSolver.from_reference_checkpoint(args.checkpoint,
+                                                           device=device)
     maps = load_maps(args.testset)
     if args.limit:
         maps = maps[: args.limit]

@@ -1,12 +1,17 @@
 """Training CLI, port of `helmnet_tpu/cli/train.py` (reference train.py).
 
     python -m helmnet_tpu_torch.cli.train --parameters experiments/base.json \\
-        --epochs 1000 [--device cpu]
+        --epochs 1000 [--platform cpu]
 
 Trains on the card (`--device cuda`, the default; raises without one) or
-the CPU. --smoke runs the JAX package's tiny end-to-end training
-(generated data, 32^2 grid, a few epochs) and passes when a later epoch's
-mean loss is below the first's and every loss is finite. The JAX CLI's
+the CPU. `--platform` is another name for `--device`, so a command line
+written for the JAX CLI runs here. With no device given the CLI takes
+`cuda` even with --smoke, where the JAX CLI's --smoke defaults to the
+CPU: the port's entry points never move to the CPU unless asked to, so a
+smoke run without a card raises instead of passing on the CPU unnoticed.
+--smoke runs the JAX package's tiny end-to-end training (generated data,
+32^2 grid, a few epochs) and passes when a later epoch's mean loss is
+below the first's and every loss is finite. The JAX CLI's
 --data-parallel and --multihost are not ported.
 """
 
@@ -24,7 +29,7 @@ def main(argv=None):
     p.add_argument("--ckpt-dir", type=str, default="checkpoints")
     p.add_argument("--val-every", type=int, default=2)
     p.add_argument("--val-iterations", type=int, default=None)
-    p.add_argument("--device", type=str, default=None,
+    p.add_argument("--device", "--platform", dest="device", type=str, default=None,
                    help="torch device (default cuda; raises without a card)")
     p.add_argument("--smoke", action="store_true")
     args = p.parse_args(argv)

@@ -222,3 +222,26 @@ def helmholtz_residual(
     u, source: [..., H, W, 2]; k_sq: [..., H, W] (real, broadcast over re/im).
     """
     return laplacian(op, u, mode) + k_sq[..., None] * u - source
+
+
+# ---------------------------------------------------------------------------
+# Dense assembly (for GMRES cross-checks and small-system direct solves)
+# ---------------------------------------------------------------------------
+
+
+def assemble_dense(
+    height: int, width: int, pml_size: int, sigma_max: float, k0: float,
+    k_sq: np.ndarray | None = None,
+) -> np.ndarray:
+    """The full dense complex128 system matrix on the host (numpy).
+
+    Row-major vectorization u.reshape(H*W): M = kron(Ay, I_W) + kron(I_H, Ax)
+    [+ diag(k_sq.ravel()) if k_sq given], the construction the reference's
+    MATLAB script assembles from sparse krons. Only for small grids
+    (O((HW)^2) memory)."""
+    Ax = axis_operator(width, pml_size, sigma_max, k0)
+    Ay = axis_operator(height, pml_size, sigma_max, k0)
+    M = np.kron(Ay, np.eye(width)) + np.kron(np.eye(height), Ax)
+    if k_sq is not None:
+        M = M + np.diag(np.asarray(k_sq, np.complex128).ravel())
+    return M

@@ -419,3 +419,90 @@ class IterativeSolver:
 
         params, ckpt_cfg = load_reference_checkpoint(path, device=device)
         return cls(config or ckpt_cfg, params=params, device=device)
+
+    @classmethod
+    def from_params_npz(cls, path: str, config: Optional[Config] = None,
+                        device=None):
+        """Solver from a flat params npz (`weights.load_params_npz`), with
+        the default config unless `config` is given. This is how the
+        weights of an orbax training run reach the port:
+        `tools/export_orbax_npz.py` writes the run's best step as such a
+        file (for example `trained_models/tpu_r2c_best.npz`), since orbax
+        imports JAX and the port does not."""
+        from ..weights import load_params_npz
+
+        cfg = config or Config()
+        return cls(cfg, params=load_params_npz(path, cfg, device=device),
+                   device=device)
+
+
+@torch.no_grad()
+def rollout_variable_source(
+    params,
+    op: SpectralPML,
+    sources,
+    switch_iterations,
+    sos_maps,
+    *,
+    cfg: Config,
+    num_iterations: int,
+    collect: tuple = ("rmse",),
+    decimate: int = 1,
+    device=None,
+):
+    """Rollout with the source map changing over iterations (reference
+    forward_variable_src, hybridnet.py:699-754).
+
+    sources: [K, B, H, W, 2] stacked source maps; switch_iterations: [K]
+    ascending iteration indices at which each source becomes active
+    (switch_iterations[0] should be 0). At a switch after iteration 0 the
+    residual is recomputed against the new source before stepping, as the
+    reference does. Which source is active is counted on the host from a
+    numpy copy of `switch_iterations`, so no step waits on the card.
+    collect ⊆ {'rmse', 'wavefields', 'residuals', 'states'}; the traces
+    other than rmse are sampled every `decimate` steps."""
+    if num_iterations % decimate != 0:
+        raise ValueError("num_iterations must be divisible by decimate")
+    dev = resolve_device(device)
+    params = params_to(params, dev)
+    if uses_kernel(cfg.model):
+        params = prepare_k1(params, cfg.model)  # K1's weights, once a rollout
+    op = op.to(dev)
+    sources = _on(sources, dev)
+    switch = np.asarray(switch_iterations.cpu() if isinstance(
+        switch_iterations, torch.Tensor) else switch_iterations)
+    sos_maps = _on(sos_maps, dev)
+    arch = get_architecture(cfg.model.architecture)
+    k_sq, wavefield = get_initials(sos_maps, cfg.source.omega)
+    states = arch.init_states(sos_maps.shape[0], tuple(sos_maps.shape[1:3]),
+                              cfg.model, sos_maps.dtype, device=dev)
+
+    def source_at(it: int) -> torch.Tensor:
+        # a negative index takes the last source, as JAX's dynamic index does
+        return sources[int(np.sum(switch <= it)) - 1]
+
+    residual = helmholtz_residual(op, wavefield, k_sq, source_at(0), cfg.operator_mode)
+    carry = SolverCarry(wavefield, residual, states)
+    rmses = []
+    traces = {k: [] for k in ("wavefields", "residuals", "states") if k in collect}
+    for it in range(num_iterations):
+        src = source_at(it)
+        if it > 0 and np.any(switch == it):  # hybridnet.py:729-733
+            carry = carry._replace(residual=helmholtz_residual(
+                op, carry.wavefield, k_sq, src, cfg.operator_mode))
+        carry = single_step(params, op, src, k_sq, carry, cfg=cfg)
+        if "rmse" in collect:
+            rmses.append(residual_rmse(carry.residual))
+        if (it + 1) % decimate == 0:
+            if "wavefields" in traces:
+                traces["wavefields"].append(carry.wavefield)
+            if "residuals" in traces:
+                traces["residuals"].append(carry.residual)
+            if "states" in traces:
+                traces["states"].append(arch.flatten_states(carry.states))
+    out = {"wavefield": carry.wavefield, "residual": carry.residual}
+    if "rmse" in collect:
+        out["rmse"] = torch.stack(rmses)
+    for key, trace in traces.items():
+        out[key] = torch.stack(trace)
+    return out

@@ -16,8 +16,11 @@ PyTorch's OIHW and ConvTranspose2d layouts (models/blocks.py).
   `outc` and `up[i].{b, w}` — 88 leaves. A count or shape that does not
   match raises.
 
-Orbax checkpoint directories (`checkpoints/`) need orbax and are not
-read here.
+Orbax checkpoint directories (`checkpoints/`) need orbax, which imports
+JAX, and are not read here: `tools/export_orbax_npz.py` writes a run's
+params as such an npz (`trained_models/tpu_r2c_best.npz` is
+`checkpoints/tpu_r2c` at its best step). The CLIs refuse a directory with
+`ORBAX_REFUSAL`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,11 @@ from .core.config import Config, ModelConfig
 from .core.device import resolve_device
 from .models.blocks import hwio_to_torch_conv, hwio_to_torch_convtranspose
 from .models.registry import get_architecture
+
+ORBAX_REFUSAL = (
+    "is a directory (an orbax checkpoint); the PyTorch port reads a flat "
+    "params .npz or a reference .ckpt. Export the run with "
+    "`python tools/export_orbax_npz.py DIR OUT.npz` and pass OUT.npz")
 
 
 def _model_cfg(cfg) -> ModelConfig:

@@ -156,7 +156,7 @@ def test_cli_matches_jax_cli(ckpt, tmp_path, packed):
 
 
 def test_cli_refuses_orbax_directories(tmp_path):
-    with pytest.raises(SystemExit, match="Queue A item 3"):
+    with pytest.raises(SystemExit, match="tools/export_orbax_npz.py"):
         teval.main(["--checkpoint", str(tmp_path), "--testset", "x.npz",
                     "--platform", "cpu"])
 

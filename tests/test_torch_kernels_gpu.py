@@ -504,3 +504,82 @@ def test_k2c_launches_the_one_kernel(cuda):
     torch.cuda.synchronize()
     assert all(torch.equal(g, r) for g, r in zip(got, ref))
     assert not hasattr(load_library(), "hn_stencil_residual_mma")
+
+
+def _r2c(cfg, device):
+    from pathlib import Path
+
+    from helmnet_tpu_torch.weights import load_params_npz
+
+    npz = Path(__file__).resolve().parent.parent / "trained_models" / "tpu_r2c_best.npz"
+    return load_params_npz(str(npz), cfg, device=device)
+
+
+def test_k1_inside_the_learned_preconditioner(cuda):
+    """One application of `make_learned_preconditioner` in 'pallas' mode
+    launches K1 14 times a step with weights prepared once, and equals the
+    same application on the CPU, where the wrapper takes the plain version,
+    within K1's tolerance."""
+    import dataclasses
+
+    from helmnet_tpu_torch.core.config import Config
+    from helmnet_tpu_torch.ops.spectral import make_operator
+    from helmnet_tpu_torch.solvers.fgmres import make_learned_preconditioner
+
+    cfg = Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, precision="default",
+                                                double_conv_mode="pallas",
+                                                up_mode="subpixel"))
+    params = _r2c(cfg, cuda)
+    rng = np.random.default_rng(11)
+    n, iters = 96, 4
+    sos = np.ones((n, n), np.float32)
+    sos[30:66, 24:78] += rng.random((36, 54)).astype(np.float32)
+    v = (rng.standard_normal((n, n)) + 1j * rng.standard_normal((n, n))).astype(np.complex64)
+    g = cfg.geometry
+    op = make_operator(n, n, g.pml_size, g.sigma_max, cfg.k0, device=cuda)
+    apply = make_learned_preconditioner(params, op, sos, cfg=cfg, iterations=iters,
+                                        device=cuda)
+    fused_double_conv.launches = 0
+    got = apply(torch.from_numpy(v).to(cuda)).cpu()
+    assert fused_double_conv.launches == 14 * iters
+    plain = make_learned_preconditioner(params, op.to("cpu"), sos, cfg=cfg,
+                                        iterations=iters, device="cpu")
+    ref = plain(torch.from_numpy(v))
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max() <= TOL * ref.abs().max()
+
+
+def test_k2a_inside_the_deflated_matvec(cuda):
+    """On a StencilPML every matvec of `solve_helmholtz_deflated` is one K2a
+    launch, bit-equal to the plain version on the same basis row; a solve
+    launches K2a exactly once for each matvec it makes: one for the first
+    residual, then a cycle's Arnoldi steps and its closing residual."""
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+    from helmnet_tpu_torch.solvers.deflation import solve_helmholtz_deflated
+    from helmnet_tpu_torch.solvers.gmres import make_helmholtz_matvec
+
+    rng = np.random.default_rng(12)
+    n = 64
+    op = make_stencil_operator(n, n, 8, 2.0, 1.0, order=4, device=cuda)
+    k_sq = torch.tensor(rng.uniform(0.25, 1.0, (n, n)).astype(np.float32), device=cuda)
+    basis = torch.randn((3, n * n), dtype=torch.complex64, device=cuda)
+    mv = make_helmholtz_matvec(op, k_sq)
+    sr.reset_launches()
+    got = mv(basis[1].reshape(1, n, n))[0]
+    assert sr.residual_planes.launches == 1
+    pair = torch.view_as_real(basis[1].reshape(n, n))
+    ref = torch.complex(*sr.residual_planes_plain(op, pair[..., 0], pair[..., 1], k_sq))
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
+
+    src = np.zeros((n, n, 2), np.float32)
+    src[n - 12, n // 2, 0] = 10.0
+    sr.reset_launches()
+    res = solve_helmholtz_deflated(op, k_sq, src, restart=12, k=4, max_cycles=4,
+                                   tol=0.0, device=cuda)
+    cycles = len(res.residual_norms) - 1
+    assert cycles == 4 and res.iterations == 12 + 3 * 8
+    assert sr.residual_planes.launches == 1 + res.iterations + cycles
+    assert sr.residual_planes_tiled.launches == sr.residual_planes_mxu.launches == 0

@@ -302,3 +302,29 @@ def test_cli_smoke(tmp_path):
         records = [json.loads(line) for line in f]
     assert [r["epoch"] for r in records if "train_loss_mean" in r] == [0, 1, 2]
     assert any("val_loss" in r for r in records)
+
+
+class _Stop(Exception):
+    pass
+
+
+@pytest.mark.parametrize("flag", ["--platform", "--device"])
+def test_cli_platform_is_another_name_for_device(monkeypatch, flag):
+    """A command line written for the JAX CLI (`--platform cpu --smoke`)
+    reaches the same Trainer device as the port's `--device cpu`; with no
+    flag the device stays the port's default (None: cuda, raising without a
+    card)."""
+    from helmnet_tpu_torch.cli import train as train_cli
+
+    seen = []
+
+    def fake_trainer(cfg, log_dir=None, device=None):
+        seen.append(device)
+        raise _Stop
+
+    monkeypatch.setattr(tloop, "Trainer", fake_trainer)
+    with pytest.raises(_Stop):
+        train_cli.main([flag, "cpu", "--smoke"])
+    with pytest.raises(_Stop):
+        train_cli.main(["--smoke"])
+    assert seen == ["cpu", None]

@@ -11,7 +11,8 @@ at bench.py's 512^2 x 8, batched GMRES on the stencil operator at
 256^2 x 16, unsupervised replay-buffer training at 96^2 x 32 with 10 unrolled
 steps, and the classical solvers (learned-preconditioned FGMRES,
 two-level, deflated GMRES, hybrid, `solve_auto`, `cli/solve`) with the
-tpu_r2c weights, and checks them all:
+tpu_r2c weights, and serving (`SolverService`, `cli/serve`) with the
+remaining 2D entry points, and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -127,7 +128,38 @@ tpu_r2c weights, and checks them all:
    plain matvec's, the last residual equal to the true one; (f) `cli/solve`
    on the 96^2 test set with the npz, rc 0 and the learned plan. Each of
    (b)-(e) is timed: the wall of 3 solves after the counted one (median),
-   and one profiled solve's device time, busy share and busiest kernels.
+   and one profiled solve's device time, busy share and busiest kernels;
+13. serving and the remaining 2D entry points with the tpu_r2c weights on
+   the default config at full width and depth: (a) K1 against its plain
+   version at each of a served step's 14 calls, batch 8 at 96^2 and 256^2
+   (atol 2e-2 max|ref|, as phase 3); `SolverService` with
+   `ServeConfig()`'s defaults ('pallas' mode, K1), warmed up at 96^2 and
+   256^2, then a burst of 64 requests from 8 client threads (the first 48
+   test maps at 96^2 and the 16 maps of datasets/eval256 at 256^2, 4 of
+   them with a source location, 500 iterations each): every future
+   resolves, no request fails, `completed` and `by_size` as sent, exactly
+   14 x 500 K1 launches a batch, every request's best rmse at or below
+   its first over 20; requests/s, p50/p95 latency, occupancy, padded slots
+   and the wall of each batch; then one batch of each bucket, taken whole
+   while the worker is busy, equal to a direct `IterativeSolver.forward`
+   of the same padded stack and sources (rtol 1e-6, with cuDNN's
+   deterministic algorithms) and its first 4 rmse within rtol 0.05 of an
+   'xla' (cuDNN f32) forward of that stack, and a profile of a 96^2
+   batch; (b)
+   `python -m helmnet_tpu_torch.cli.serve` as a subprocess on port 0: /healthz, /solve (one 96^2 map, 100 iterations) and /stats
+   answer 200, the wavefield is finite [96, 96, 2] with a falling rmse,
+   and the server exits when terminated; (c) `cli/example`'s
+   `simple_scattering` (256^2, 100 iterations, K1): exactly 1400 K1
+   launches, finite falling rmse, the first 4 within rtol 0.05 of the CPU
+   path; the CLI itself where matplotlib is installed; (d)
+   `compare_solvers` on tests/test_harness.py's 96^2 slab ('xla' mode,
+   200 iterations, CSLP-GMRES(50) x 20): l_inf, rmse and the model's
+   traces within 5% of the CPU path, GMRES's residual down by 1e4;
+   (e) `solve_cw` on tests/test_timedomain.py's two 64^2 problems
+   (roundtrips 30) against a float64 dense Helmholtz solve within 0.03
+   and 0.06; (f) a seeded resnet (depth 3, features 8) 96^2 x 8 x 50
+   rollout (cuDNN f32), no hand-kernel launch, the first 4 rmse within
+   rtol 1e-3 of the CPU path.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -196,6 +228,14 @@ SOLUTION_ATOL = 2e-2  # * max|u|: two FGMRES solutions, tests/test_fgmres.py:73
 # defect correction rounds b - A x0 once: tests/test_hybrid.py:101
 HYBRID_CSLP_RTOL, HYBRID_CSLP_ATOL = 5e-2, 1e-6
 CLASSICAL_TIMED = 3  # 12b-e: solves timed after the counted one
+SERVE_96, SERVE_256, SERVE_CLIENTS = 48, 16, 8  # 13a's burst: requests, clients
+SERVE_LOCS = ((60, 128), (128, 60), (128, 196), (200, 128))  # 13a: 256^2 sources
+SERVE_RMSE_FACTOR = 20.0  # 13a: rmse[0] / best_rmse per request, 12a's bound
+SERVE_EXACT_RTOL = 1e-6  # 13a: a served batch against a direct forward
+EXAMPLE_ITERS = 100  # 13c: cli/example's default
+CMP_RTOL = 0.05  # 13d: compare_solvers on the card against the CPU path
+CW_GRID, CW_ROUNDTRIPS = 64, 30  # 13e: tests/test_timedomain.py:44-53
+RESNET_ITERS, RESNET_RTOL = 50, 1e-3  # 13f: cuDNN f32 against the CPU, first 4 rmse
 
 
 def log(msg: str) -> None:
@@ -995,6 +1035,445 @@ def classical_phase(dev, cfg, cfg_kernel, hand_kernels) -> dict:
     return out
 
 
+def read_serving_port(proc, deadline_s: float) -> tuple[int, list]:
+    """The port from the `serving on http://HOST:PORT` line of a cli/serve
+    subprocess, read by a thread so the wait has a deadline; returns the
+    port and the lines read until then."""
+    import queue
+    import re
+    import threading
+
+    lines: "queue.Queue[str]" = queue.Queue()
+
+    def pump():
+        for line in proc.stdout:
+            lines.put(line)
+
+    threading.Thread(target=pump, daemon=True).start()
+    seen, end = [], time.perf_counter() + deadline_s
+    while time.perf_counter() < end:
+        try:
+            line = lines.get(timeout=1.0)
+        except queue.Empty:
+            if proc.poll() is not None:
+                break
+            continue
+        seen.append(line.rstrip())
+        m = re.search(r"serving on http://[^:]+:(\d+)", line)
+        if m:
+            return int(m.group(1)), seen
+    return 0, seen
+
+
+def serve_phase(dev, hand_kernels) -> dict:
+    """Phase 13: serving and the remaining 2D entry points, with the
+    tpu_r2c weights on the default config at full width and depth (K1,
+    'pallas' mode, wherever the learned solver runs unless said). Every
+    gate failure exits; the returned dict holds what was measured.
+    `hand_kernels()` reads the launch counts of K2a, K2b, K2c, K1 and K3."""
+    import importlib.util
+    import json as _json
+    import os
+    import tempfile
+    import urllib.request
+    from concurrent.futures import ThreadPoolExecutor
+
+    from helmnet_tpu_torch.cli.example import simple_scattering
+    from helmnet_tpu_torch.core.config import Config
+    from helmnet_tpu_torch.data.ellipses import load_maps
+    from helmnet_tpu_torch.eval.harness import compare_solvers, normalize_wavefield
+    from helmnet_tpu_torch.models.hybridnet import params_to
+    from helmnet_tpu_torch.models.registry import get_architecture
+    from helmnet_tpu_torch.ops.double_conv import (double_conv_plain, fused_double_conv,
+                                                   prepare, tile_for)
+    from helmnet_tpu_torch.ops.source import point_source_amplitude, point_source_map
+    from helmnet_tpu_torch.ops.spectral import assemble_dense, make_operator
+    from helmnet_tpu_torch.serve import ServeConfig, SolverService
+    from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
+    from helmnet_tpu_torch.solvers.timedomain import solve_cw
+
+    t0 = time.perf_counter()
+    out = {}
+    steps = 14  # K1 launches a learned step (phase 4)
+    base = Config()
+    cfg = base.replace(model=dataclasses.replace(base.model, double_conv_mode="pallas"))
+    solver = IterativeSolver.from_params_npz(R2C_NPZ, cfg, device=dev)
+    params = solver.params
+    sos96 = np.load("datasets/splitted_96/testset.npz")["maps"][:SERVE_96]
+    maps256 = load_maps("datasets/eval256/maps.npz")[:SERVE_256]
+
+    # -- 13a: SolverService, K1 ------------------------------------------------
+    service = SolverService(solver, ServeConfig())
+    sc = service.config
+
+    # K1 against its plain version at each call of a served step (phase 3's
+    # check, at the batch and grids serving gives it: the batch picks the
+    # output tile). These launches are made before the counts are reset.
+    gen = torch.Generator(device=dev).manual_seed(13)
+    k1_check = {}
+    for n in (GRID, PACK_GRID):
+        for name, p, m, cins in step_calls(params, cfg.model, n):
+            parts = tuple(torch.randn((sc.max_batch, m, m, c), generator=gen, device=dev)
+                          for c in cins)
+            ref_out = double_conv_plain(p, parts)
+            got_out = fused_double_conv(prepare(p), parts)
+            torch.cuda.synchronize()
+            err = (got_out - ref_out).abs().max().item()
+            scale = ref_out.abs().max().item()
+            tile = tile_for(sc.max_batch, m, m)
+            ok = bool(torch.isfinite(got_out).all()) and err <= KERNEL_RTOL * scale
+            k1_check[f"{n}^2 {name}"] = {"grid": m, "tile": list(tile), "max_abs_err": err,
+                                         "atol": KERNEL_RTOL * scale}
+            log(f"phase 13a K1 {name:20s} {sc.max_batch} x {m}^2, tile "
+                f"{tile[0]}x{tile[1]}: max|err| {err:.3e} (atol "
+                f"{KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"K1 disagrees with its plain version at {name}, "
+                     f"{sc.max_batch} x {m}^2")
+    out["k1_against_plain"] = k1_check
+    try:
+        reset_counts()
+        t = time.perf_counter()
+        service.warmup([(GRID, GRID), (PACK_GRID, PACK_GRID)], timeout=600)
+        warm_s = time.perf_counter() - t
+        warm_counts = hand_kernels()
+        before = service.stats()
+        reqs = [(sos96[i], {}) for i in range(SERVE_96)] + [
+            (maps256[i], {"source_location": SERVE_LOCS[i]} if i < len(SERVE_LOCS) else {})
+            for i in range(SERVE_256)]
+        order = np.random.default_rng(0).permutation(len(reqs))  # the buckets mixed
+        share = [order[c::SERVE_CLIENTS] for c in range(SERVE_CLIENTS)]
+
+        def client(idx):
+            futs = [(i, service.submit(reqs[i][0], **reqs[i][1])) for i in idx]
+            return [(i, f.result(timeout=600)) for i, f in futs]
+
+        reset_counts()
+        t = time.perf_counter()
+        with ThreadPoolExecutor(SERVE_CLIENTS) as pool:
+            results = dict(r for part in pool.map(client, share) for r in part)
+        burst_s = time.perf_counter() - t
+        counts = hand_kernels()
+        after = service.stats()
+        d = {k: after[k] - before[k] for k in ("requests", "completed", "failed", "batches",
+                                               "padded_slots", "batched_slots")}
+        by_size = {k: after["by_size"].get(k, 0) - before["by_size"].get(k, 0)
+                   for k in after["by_size"]}
+        lat = [results[i]["latency_s"] for i in range(len(reqs))]
+        p50, p95 = (float(p) for p in np.percentile(lat, [50, 95]))
+        walls = {}  # a batch's wall: the device_s its requests share
+        for i, r in results.items():
+            walls.setdefault(f"{r['wavefield'].shape[0]}^2", set()).add(r["device_s"])
+        ratio = np.array([results[i]["rmse"][0] / results[i]["best_rmse"]
+                          for i in range(len(reqs))])
+        finite = all(np.isfinite(r["wavefield"]).all() and np.isfinite(r["rmse"]).all()
+                     for r in results.values())
+        occupancy = 1.0 - d["padded_slots"] / d["batched_slots"]
+        log(f"phase 13a SolverService ({sc.max_batch} a batch, chunk "
+            f"{sc.chunk_iterations}, window {sc.batch_window_s} s, "
+            f"{sc.default_iterations} iterations): warm-up of 96^2 and 256^2 in "
+            f"{warm_s:.2f} s, launches K2a/K2b/K2c/K1/K3 {warm_counts}; burst of "
+            f"{len(reqs)} ({SERVE_96} at 96^2, {SERVE_256} at 256^2, {len(SERVE_LOCS)} "
+            f"with a source location) from {SERVE_CLIENTS} clients in {burst_s:.2f} s: "
+            f"{len(reqs) / burst_s:.3f} requests/s; latency p50 {p50:.3f} s, p95 "
+            f"{p95:.3f} s; {d['batches']} batches, occupancy {occupancy:.4f}, {d['padded_slots']} "
+            f"padded slots; launches K2a/K2b/K2c/K1/K3 {counts}; stats {d}, by size "
+            f"{by_size}")
+        for k, v in sorted(walls.items()):
+            log(f"phase 13a wall per {k} batch: {[round(x, 4) for x in sorted(v)]} s")
+        log(f"phase 13a rmse[0] / best_rmse per request: min {ratio.min():.2f}, "
+            f"median {np.median(ratio):.2f} (gate {SERVE_RMSE_FACTOR})")
+        if d["failed"] or d["completed"] != len(reqs) or len(results) != len(reqs):
+            fail(f"the service completed {d['completed']} of {len(reqs)}, "
+                 f"{d['failed']} failed")
+        if by_size != {f"{GRID}x{GRID}": SERVE_96, f"{PACK_GRID}x{PACK_GRID}": SERVE_256}:
+            fail(f"the service's by_size {by_size} is not what was sent")
+        if counts != (0, 0, 0, steps * sc.default_iterations * d["batches"], 0):
+            fail(f"the burst launched {counts}, expected {steps} x "
+                 f"{sc.default_iterations} x {d['batches']} K1")
+        if not finite or not ratio.min() >= SERVE_RMSE_FACTOR:
+            fail("a served solve is not finite or did not fall by the stated factor")
+        out["burst"] = {"requests": len(reqs), "seconds": burst_s,
+                        "requests_per_s": len(reqs) / burst_s,
+                        "latency_p50_s": p50, "latency_p95_s": p95, "latency_s": lat,
+                        "occupancy": occupancy, "stats_delta": d, "by_size": by_size,
+                        "batch_walls_s": {k: sorted(v) for k, v in walls.items()},
+                        "k1_launches": counts[3], "warmup_s": warm_s,
+                        "warmup_k1_launches": warm_counts[3],
+                        "rmse_factor_min": float(ratio.min())}
+
+        # where a 96^2 batch's time goes: a direct forward of the same stack
+        # as a served batch (the default source), one chunk, profiled
+        ref = IterativeSolver(cfg, params=params, device=dev)
+        stack96 = sos96[:sc.max_batch]
+        prof = profile_steps(lambda _: ref.forward(
+            stack96, num_iterations=sc.chunk_iterations,
+            chunk_iterations=sc.chunk_iterations), 1)
+        log(f"phase 13a profile of one {GRID}^2 x {sc.max_batch} batch of "
+            f"{sc.chunk_iterations} iterations: wall {prof['wall_ms_per_step']:.1f} "
+            f"ms, device {prof['device_ms_per_step']:.1f} ms, busy share "
+            f"{prof['busy_share']:.4f}")
+        for k in prof["top"][:6]:
+            print(f"    {k['device_ms_per_step']:.3f} ms {k['calls_per_step']:7.0f} "
+                  f"calls  {k['name']}", flush=True)
+        out["batch_profile"] = {k: prof[k] for k in ("wall_ms_per_step",
+                                                     "device_ms_per_step",
+                                                     "busy_share", "top")}
+
+        # one batch a bucket against a direct forward of the same padded
+        # stack and sources: the worker is kept busy by a first request of
+        # the other bucket while the batch queues, so it is taken whole.
+        # cuDNN's transposed convs may sum in another order from run to
+        # run (atomics), and the recurrent rollout carries that far; so
+        # this check runs with cuDNN's deterministic algorithms, and the
+        # run-to-run gap of the default ones is logged beside it
+        exact = {}
+        xla = IterativeSolver(base, params=params, device=dev)  # cuDNN f32, TF32 off
+        for n, blocker, sos, kws in (
+                (GRID, maps256[0], stack96, [{}] * sc.max_batch),
+                (PACK_GRID, sos96[0], maps256[:3],
+                 [{"source_location": SERVE_LOCS[0]}, {}, {}])):
+            ref.set_domain_size((n, n))
+            # the service scales the default source location with the grid
+            scaled = tuple(int(round(c * n / GRID)) for c in cfg.source.location)
+            maps = []
+            for kw in kws:
+                ref.set_sources([kw.get("source_location", scaled)])
+                maps.append(ref.source[0])
+            maps += [maps[0]] * (sc.max_batch - len(maps))
+            ref.set_source_maps(torch.stack(maps))
+            xla.set_domain_size((n, n))
+            xla.set_source_maps(torch.stack(maps))
+            stack = np.concatenate([sos, np.repeat(sos[:1], sc.max_batch - len(sos), 0)])
+
+            def direct(stack=stack):
+                return ref.forward(stack, num_iterations=sc.chunk_iterations,
+                                   chunk_iterations=sc.chunk_iterations)
+
+            def gaps(got, want) -> dict:
+                """Max over the requests of max|got - want| / max|want|."""
+                rel = {}
+                for i, g in enumerate(got):
+                    for key, w in (("wavefield", want["wavefield"][i]),
+                                   ("rmse", want["rmse"][:, i]),
+                                   ("best_rmse", want["best_rmse"][i])):
+                        w = w.cpu().numpy()
+                        d = float(np.abs(np.asarray(g[key]) - w).max() / np.abs(w).max())
+                        rel[key] = max(rel.get(key, 0.0), d)
+                return rel
+
+            first = direct()
+            again = direct()
+            spread = gaps([{"wavefield": again["wavefield"][i].cpu().numpy(),
+                            "rmse": again["rmse"][:, i].cpu().numpy(),
+                            "best_rmse": float(again["best_rmse"][i])}
+                           for i in range(len(sos))], first)
+            torch.backends.cudnn.deterministic = True
+            try:
+                busy = service.submit(blocker, iterations=3 * sc.chunk_iterations)
+                time.sleep(0.2)
+                futs = [service.submit(s, iterations=sc.chunk_iterations, **kw)
+                        for s, kw in zip(sos, kws)]
+                busy.result(timeout=600)
+                got = [f.result(timeout=600) for f in futs]
+                want = direct()
+            finally:
+                torch.backends.cudnn.deterministic = False
+            if any(g["batch_size"] != len(sos) for g in got):
+                fail(f"the {n}^2 requests were not served as one batch")
+            rel = gaps(got, want)
+            # the served requests' first 4 rmse against cuDNN f32 on the same
+            # padded stack: K1's bf16 taps against the f32 path (phase 4)
+            cudnn_rmse = xla.forward(stack, num_iterations=4)["rmse"].cpu().numpy()
+            early = max(float((np.abs(g["rmse"][:4] - cudnn_rmse[:, i])
+                               / np.abs(cudnn_rmse[:, i])).max()) for i, g in enumerate(got))
+            exact[f"{n}^2"] = {"deterministic": rel, "default_run_to_run": spread,
+                               "early_rmse_vs_cudnn": early}
+            log(f"phase 13a a served {n}^2 batch of {len(sos)} (padded to "
+                f"{sc.max_batch}) against a direct forward, cuDNN deterministic: max "
+                f"rel diff {rel} (tol {SERVE_EXACT_RTOL}); two direct forwards with "
+                f"cuDNN's default algorithms: {spread}; first 4 rmse against an 'xla' "
+                f"(cuDNN f32) forward: max rel diff {early:.3e} (rtol {EARLY_RTOL})")
+            if max(rel.values()) > SERVE_EXACT_RTOL:
+                fail(f"the served {n}^2 batch differs from the direct forward")
+            if not early <= EARLY_RTOL:
+                fail(f"the served {n}^2 batch's first rmse disagree with cuDNN f32")
+        out["exact_rel_diff"] = exact
+        final = service.stats()
+        if final["failed"]:
+            fail(f"{final['failed']} served requests failed")
+        out["stats"] = final
+    finally:
+        service.shutdown()
+
+    # -- 13b: cli/serve on the card --------------------------------------------
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "helmnet_tpu_torch.cli.serve", "--checkpoint", R2C_NPZ,
+         "--port", "0", "--warmup", str(GRID)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        port, seen = read_serving_port(proc, 300)
+        if not port:
+            fail(f"cli/serve did not start: {seen[-5:]}")
+        url = f"http://127.0.0.1:{port}"
+
+        def call(path, body=None):
+            req = urllib.request.Request(
+                url + path, data=None if body is None else _json.dumps(body).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=300) as r:
+                return r.status, _json.load(r)
+
+        health = call("/healthz")
+        t = time.perf_counter()
+        solved = call("/solve", {"sos": sos96[0].tolist(), "iterations": 100})
+        http_s = time.perf_counter() - t
+        stats = call("/stats")
+        wf = np.asarray(solved[1]["wavefield"], np.float32)
+        rm = np.asarray(solved[1]["rmse"])
+        log(f"phase 13b cli/serve (`{seen[-1]}`): /healthz {health}, /solve "
+            f"{solved[0]} in {http_s:.2f} s (wavefield {list(wf.shape)}, rmse "
+            f"{rm[0]:.4e} -> {rm[-1]:.4e}), /stats {stats[0]} completed "
+            f"{stats[1]['completed']}")
+        if (health != (200, {"ok": True}) or solved[0] != 200 or stats[0] != 200
+                or wf.shape != (GRID, GRID, 2) or not np.isfinite(wf).all()
+                or not rm[-1] < rm[0] or stats[1]["completed"] < 1):
+            fail("cli/serve did not answer as it should")
+    finally:
+        proc.terminate()
+        try:
+            rc = proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+            fail("cli/serve did not exit when terminated")
+    log(f"phase 13b cli/serve terminated, exit code {rc}")
+    out["cli_serve"] = {"solve_s": http_s, "completed": stats[1]["completed"],
+                        "rmse_first": float(rm[0]), "rmse_last": float(rm[-1])}
+
+    # -- 13c: cli/example ------------------------------------------------------
+    reset_counts()
+    t = time.perf_counter()
+    ex = simple_scattering(IterativeSolver(cfg, params=params, device=dev),
+                           EXAMPLE_ITERS)
+    ex_s = time.perf_counter() - t
+    counts = hand_kernels()
+    cpu = simple_scattering(IterativeSolver(cfg, params=params_to(params, "cpu"),
+                                            device="cpu"), 4)
+    early = np.abs(ex["rmse"][:4] - cpu["rmse"]) / cpu["rmse"]
+    log(f"phase 13c simple_scattering (256^2 slab, line source) {EXAMPLE_ITERS} "
+        f"iterations: {ex_s:.2f} s, launches K2a/K2b/K2c/K1/K3 {counts}; rmse "
+        f"{ex['rmse'][0]:.4e} -> {ex['rmse'][-1]:.4e}; first 4 against the CPU path "
+        f"max rel diff {early.max():.3e} (rtol {EARLY_RTOL})")
+    if counts != (0, 0, 0, steps * EXAMPLE_ITERS, 0):
+        fail(f"simple_scattering launched {counts}")
+    if not (np.isfinite(ex["rmse"]).all() and np.isfinite(ex["wavefield"]).all()
+            and ex["rmse"][-1] < ex["rmse"][0] and early.max() <= EARLY_RTOL):
+        fail("the example's solve is not finite, not falling or not the CPU path's")
+    if importlib.util.find_spec("matplotlib") is None:
+        log("phase 13c matplotlib is not installed here: `python -m "
+            "helmnet_tpu_torch.cli.example` (which plots) not run")
+    else:
+        png = os.path.join(tempfile.mkdtemp(), "wavefield.png")
+        proc = subprocess.run([sys.executable, "-m", "helmnet_tpu_torch.cli.example",
+                               "--checkpoint", R2C_NPZ, "--out", png],
+                              capture_output=True, text=True, timeout=300)
+        log(f"phase 13c cli/example: rc {proc.returncode}, "
+            f"{proc.stdout.strip().splitlines()[:1]}")
+        if proc.returncode != 0 or not os.path.exists(png):
+            fail(f"cli/example failed: {proc.stderr[-500:]}")
+    out["example"] = {"seconds": ex_s, "rmse_first": float(ex["rmse"][0]),
+                      "rmse_last": float(ex["rmse"][-1]), "cpu_rel_diff": float(early.max()),
+                      "k1_launches": counts[3]}
+
+    # -- 13d: compare_solvers (the fig_generic flow) ---------------------------
+    sos_cmp = np.ones((GRID, GRID), np.float32)
+    sos_cmp[30:60, 20:70] = 1.6  # tests/test_harness.py:52-58
+    kw = dict(num_iterations=200, decimate=20, gmres_restart=50, gmres_max_restarts=20,
+              gmres_tol=1e-7)
+    t = time.perf_counter()
+    cmp = compare_solvers(IterativeSolver(base, params=params, device=dev), sos_cmp, **kw)
+    cmp_s = time.perf_counter() - t
+    cmp_cpu = compare_solvers(IterativeSolver(base, params=params_to(params, "cpu"),
+                                              device="cpu"), sos_cmp, **kw)
+    rel = {k: float(np.max(np.abs(np.asarray(getattr(cmp, k)) - getattr(cmp_cpu, k))
+                           / np.abs(getattr(cmp_cpu, k))))
+           for k in ("linf", "rmse", "model_linf_trace", "model_rmse_trace",
+                     "model_residual_rmse")}
+    norms = cmp.gmres_residual_norms
+    log(f"phase 13d compare_solvers ({GRID}^2 slab, 200 iterations, GMRES(50) x 20 "
+        f"CSLP, 'xla' mode): {cmp_s:.2f} s; linf {cmp.linf:.4e}, rmse {cmp.rmse:.4e}; "
+        f"linf trace {[float(f'{x:.4e}') for x in cmp.model_linf_trace]}; GMRES "
+        f"residual {norms[0]:.4e} -> {norms[-1]:.4e}; against the CPU path max rel "
+        f"diff {rel} (rtol {CMP_RTOL})")
+    if max(rel.values()) > CMP_RTOL or not norms[-1] <= norms[0] / 1e4:
+        fail("compare_solvers on the card disagrees with the CPU path, or GMRES "
+             "did not converge")
+    out["compare"] = {"linf": cmp.linf, "rmse": cmp.rmse, "seconds": cmp_s,
+                      "cpu_rel_diff": rel, "gmres_first": float(norms[0]),
+                      "gmres_last": float(norms[-1]),
+                      "linf_trace": cmp.model_linf_trace.tolist()}
+
+    # -- 13e: solve_cw against a float64 dense Helmholtz solve -----------------
+    n = CW_GRID
+    slab = np.ones((n, n), np.float32)
+    slab[24:34, 18:46] = 1.5
+    out["timedomain"] = {}
+    for name, sos, loc, tol in (("homogeneous", np.ones((n, n), np.float32), (40, 32), 0.03),
+                                ("slab", slab, (44, 32), 0.06)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        td = solve_cw(sos, point_source_amplitude(n, n, loc, 1.0), omega=1.0, cfl=0.1,
+                      roundtrips=CW_ROUNDTRIPS, record_periods=3, sponge_width=16,
+                      sponge_strength=1.0, device=dev)
+        phasor = td.phasor.cpu().numpy()
+        td_s = time.perf_counter() - t
+        m = assemble_dense(n, n, 8, 2.0, 1.0, k_sq=(1.0 / sos) ** 2)
+        s = point_source_map(n, n, loc, 1.0)
+        u = np.linalg.solve(m, (s[..., 0] + 1j * s[..., 1]).ravel()).reshape(n, n)
+        p_td, p_hh = normalize_wavefield(phasor, loc), normalize_wavefield(u, loc)
+        inner = np.s_[18:-18, 18:-18]  # tests/test_timedomain.py:32-40
+        err = min(np.abs(p_td - p_hh)[inner].max(), np.abs(np.conj(p_td) - p_hh)[inner].max())
+        err = float(err / np.abs(p_hh[inner]).max())
+        log(f"phase 13e solve_cw {name} {n}^2, roundtrips {CW_ROUNDTRIPS}: {td.num_steps} "
+            f"steps (dt {td.dt:.6g}) in {td_s:.2f} s ({1e6 * td_s / td.num_steps:.1f} us a "
+            f"step); against the float64 Helmholtz solve {err:.4e} (tol {tol})")
+        if not (np.isfinite(phasor).all() and err < tol):
+            fail(f"solve_cw {name} disagrees with the Helmholtz solve")
+        out["timedomain"][name] = {"steps": td.num_steps, "dt": td.dt, "seconds": td_s,
+                                   "rel_err": err, "tol": tol}
+
+    # -- 13f: resnet on the card against the CPU path --------------------------
+    rcfg = base.replace(model=dataclasses.replace(base.model, architecture="resnet",
+                                                  depth=3, features=8))
+    arch = get_architecture("resnet")
+    rparams = arch.init_params(torch.Generator(device=dev).manual_seed(0), rcfg.model)
+    g = rcfg.geometry
+    op = make_operator(GRID, GRID, g.pml_size, g.sigma_max, rcfg.k0, device=dev)
+    src = torch.tensor(point_source_map(GRID, GRID, tuple(rcfg.source.location),
+                                        rcfg.source.amplitude), device=dev)[None]
+    sos8 = sos96[:8]
+    reset_counts()
+    t = time.perf_counter()
+    res = rollout(rparams, op, src.expand(8, -1, -1, -1), sos8, cfg=rcfg,
+                  num_iterations=RESNET_ITERS, device=dev)["rmse"].cpu().numpy()
+    res_s = time.perf_counter() - t
+    counts = hand_kernels()
+    res_cpu = rollout(params_to(rparams, "cpu"), op.to("cpu"), src.cpu().expand(8, -1, -1, -1),
+                      sos8, cfg=rcfg, num_iterations=4, device="cpu")["rmse"].numpy()
+    diff = float(np.max(np.abs(res[:4] - res_cpu) / res_cpu))
+    log(f"phase 13f resnet (depth 3, features 8, seeded) {GRID}^2 x 8 x {RESNET_ITERS}: "
+        f"{res_s:.2f} s, launches K2a/K2b/K2c/K1/K3 {counts}; rmse {res[0].mean():.4e} -> "
+        f"{res[-1].mean():.4e}; first 4 against the CPU path max rel diff {diff:.3e} "
+        f"(rtol {RESNET_RTOL})")
+    if counts != (0, 0, 0, 0, 0) or not np.isfinite(res).all() or diff > RESNET_RTOL:
+        fail("the resnet rollout on the card disagrees with the CPU path")
+    out["resnet"] = {"seconds": res_s, "cpu_rel_diff": diff}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 13 done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -1658,6 +2137,9 @@ def main() -> int:
     # -- 12. the classical solvers with the tpu_r2c weights ----------------
     classical = classical_phase(dev, cfg, cfg_kernel, launch_counts)
 
+    # -- 13. serving and the remaining 2D entry points ---------------------
+    serving = serve_phase(dev, launch_counts)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -1683,6 +2165,7 @@ def main() -> int:
             **{f"12c solve_fgmres_learned {k}": classical["fgmres"][k]["k1_launches"]
                for k in classical["fgmres"]},
             "12d solve_auto two-level 512^2": classical["auto_512"]["k1_launches"],
+            "phase 13 serve": serving["burst"]["k1_launches"],
         },
     }, {
         "name": "packed_double_conv",
@@ -1758,6 +2241,7 @@ def main() -> int:
                            "scipy_scale": float(scipy_scale),
                            "profile": gmres_profile},
                        "training": training, "classical": classical,
+                       "serving": serving,
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

@@ -170,3 +170,8 @@ def double_conv(params, x, activation: str, precision: str = "highest"):
     h = conv2d(params["c1"], x, padding=1, precision=precision)
     h = act(params["act"], h)
     return conv2d(params["c2"], h, padding=1, precision=precision)
+
+
+def res_double_conv(params, x, activation: str, precision: str = "highest"):
+    """DoubleConv with residual skip (reference ResDoubleConv)."""
+    return double_conv(params, x, activation, precision) + x

@@ -18,7 +18,8 @@ because its TPU kernel packs 16 pixels per lane row
 no such limit, and the function computed is the same. A width the
 kernel does not take (more than 16 channels) raises there; it does not
 fall back. `prepare_k1` converts the kernel's weights once
-(`solvers/iterative.rollout` calls it once per rollout) and keeps them
+(`solvers/iterative.rollout` calls it through `prepare_params` once per
+rollout) and keeps them
 under `K1_KEY`; `apply` converts them in the call where they are
 missing. Otherwise (`'xla'`) the DoubleConvs are cuDNN convs in f32.
 """
@@ -49,6 +50,13 @@ def uses_kernel(cfg: ModelConfig) -> bool:
     """True when `apply` sends the DoubleConvs to K1."""
     return (cfg.double_conv_mode == "pallas" and cfg.precision == "default"
             and cfg.activation_function in ("prelu", "relu"))
+
+
+def prepare_params(params, cfg: ModelConfig):
+    """The params a rollout runs on (the registry contract): with K1's
+    weights converted once (`prepare_k1`) when `apply` sends the
+    DoubleConvs to K1, else the params as they are."""
+    return prepare_k1(params, cfg) if uses_kernel(cfg) else params
 
 
 def prepare_k1(params, cfg: ModelConfig):

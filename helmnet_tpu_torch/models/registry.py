@@ -3,21 +3,23 @@
 Each architecture is a namespace exposing the functional model contract:
   init_params(generator, cfg)           -> params tree
   init_states(batch, domain, cfg, ...)  -> tuple of state tensors
+  prepare_params(params, cfg)           -> params a rollout runs on
   apply(params, x, states, cfg=cfg)     -> (out[B,H,W,2], new_states)
   flatten_states(states)                -> [B, C, S]
   unflatten_states(flat, domain, cfg)   -> tuple of state tensors
   total_state_length(domain, cfg)       -> S
 
-Only `custom_unet` (HybridNet) is ported so far; the JAX package's other
-architectures (`resnet`) raise NotImplementedError here.
+`custom_unet` (HybridNet) and `resnet`, as in the JAX package; any other
+name raises NotImplementedError.
 """
 
 from __future__ import annotations
 
-from . import hybridnet
+from . import hybridnet, resnet
 
 ARCHITECTURES = {
     "custom_unet": hybridnet,
+    "resnet": resnet,
 }
 
 
@@ -25,6 +27,4 @@ def get_architecture(name: str):
     try:
         return ARCHITECTURES[name]
     except KeyError:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported to PyTorch yet"
-        ) from None
+        raise NotImplementedError(f"Unknown architecture {name}") from None

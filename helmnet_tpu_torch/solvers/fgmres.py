@@ -50,7 +50,8 @@ import torch
 
 from ..core.config import Config
 from ..core.device import resolve_device
-from ..models.hybridnet import params_to, prepare_k1, uses_kernel
+from ..models.hybridnet import params_to
+from ..models.registry import get_architecture
 from .deflation import _combined_harmonic_ritz, _dev, _harmonic_ritz, _host, _lstsq
 from .gmres import _norm, _on, _rhs, make_helmholtz_matvec
 from .iterative import rollout
@@ -73,8 +74,8 @@ def make_learned_preconditioner(params, op, sos_map, *, cfg: Config,
     best iterate, un-normalised."""
     dev = resolve_device(device)
     params = params_to(params, dev)
-    if uses_kernel(cfg.model):
-        params = prepare_k1(params, cfg.model)  # once, not once a rollout
+    # K1's weights converted once, not once a rollout
+    params = get_architecture(cfg.model.architecture).prepare_params(params, cfg.model)
     op = op.to(dev)
     sos = _on(sos_map, dev, torch.float32)[None]
     amplitude = float(cfg.source.amplitude)

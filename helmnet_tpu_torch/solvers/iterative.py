@@ -23,7 +23,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..core.config import Config
 from ..core.device import resolve_device
-from ..models.hybridnet import params_to, prepare_k1, uses_kernel
+from ..models.hybridnet import params_to
 from ..models.registry import get_architecture
 from ..ops.source import point_source_map
 from ..ops.spectral import SpectralPML, helmholtz_residual, make_operator, resolve_mode
@@ -103,12 +103,11 @@ def rollout(
         raise ValueError("num_iterations must be divisible by decimate")
     dev = resolve_device(device)
     params = params_to(params, dev)
-    if uses_kernel(cfg.model):
-        params = prepare_k1(params, cfg.model)  # K1's weights, once a rollout
+    arch = get_architecture(cfg.model.architecture)
+    params = arch.prepare_params(params, cfg.model)  # K1's weights, once a rollout
     op = op.to(dev)
     source = _on(source, dev)
     sos_maps = _on(sos_maps, dev)
-    arch = get_architecture(cfg.model.architecture)
     k_sq, wavefield = get_initials(sos_maps, cfg.source.omega)
     states = arch.init_states(sos_maps.shape[0], tuple(sos_maps.shape[1:3]),
                               cfg.model, sos_maps.dtype, device=dev)
@@ -465,14 +464,13 @@ def rollout_variable_source(
         raise ValueError("num_iterations must be divisible by decimate")
     dev = resolve_device(device)
     params = params_to(params, dev)
-    if uses_kernel(cfg.model):
-        params = prepare_k1(params, cfg.model)  # K1's weights, once a rollout
+    arch = get_architecture(cfg.model.architecture)
+    params = arch.prepare_params(params, cfg.model)  # K1's weights, once a rollout
     op = op.to(dev)
     sources = _on(sources, dev)
     switch = np.asarray(switch_iterations.cpu() if isinstance(
         switch_iterations, torch.Tensor) else switch_iterations)
     sos_maps = _on(sos_maps, dev)
-    arch = get_architecture(cfg.model.architecture)
     k_sq, wavefield = get_initials(sos_maps, cfg.source.omega)
     states = arch.init_states(sos_maps.shape[0], tuple(sos_maps.shape[1:3]),
                               cfg.model, sos_maps.dtype, device=dev)

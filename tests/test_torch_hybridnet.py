@@ -175,9 +175,12 @@ def test_shapes_and_counts_match_jax():
 
 
 def test_registry():
+    from helmnet_tpu_torch.models import resnet as tr
+
     assert get_architecture("custom_unet") is th
-    with pytest.raises(NotImplementedError, match="resnet"):
-        get_architecture("resnet")
+    assert get_architecture("resnet") is tr
+    with pytest.raises(NotImplementedError, match="vit"):
+        get_architecture("vit")
 
 
 def test_depth_and_state_depth_variants():

@@ -89,8 +89,8 @@ def test_rollout_prepares_k1_once(monkeypatch):
 
     js, ts = _solvers(precision="default", double_conv_mode="pallas")
     calls = []
-    real = tit.prepare_k1
-    monkeypatch.setattr(tit, "prepare_k1",
+    real = th.prepare_k1
+    monkeypatch.setattr(th, "prepare_k1",
                         lambda p, cfg: calls.append(1) or real(p, cfg))
     ref, got = _rollouts(js, ts, 3)
     assert len(calls) == 1

@@ -583,3 +583,48 @@ def test_k2a_inside_the_deflated_matvec(cuda):
     assert cycles == 4 and res.iterations == 12 + 3 * 8
     assert sr.residual_planes.launches == 1 + res.iterations + cycles
     assert sr.residual_planes_tiled.launches == sr.residual_planes_mxu.launches == 0
+
+
+def test_k1_inside_a_served_batch(cuda):
+    """A `SolverService` in 'pallas' mode launches K1 14 times a step for
+    each batch it serves (a padded batch of 2 here), from its worker
+    thread, and returns what a direct forward of the same padded stack
+    returns on the card, and the CPU path's first rmse within K1's
+    tolerance (rtol 0.05, tests/test_pallas_pixconv.py:125-127). cuDNN's
+    default algorithms may sum the transposed convs in another order from
+    run to run, so the served and the direct forward use its deterministic
+    ones."""
+    import dataclasses
+
+    from helmnet_tpu_torch.core.config import Config
+    from helmnet_tpu_torch.models.hybridnet import params_to
+    from helmnet_tpu_torch.serve import ServeConfig, SolverService
+    from helmnet_tpu_torch.solvers.iterative import IterativeSolver
+
+    cfg = Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, double_conv_mode="pallas"))
+    params = _r2c(cfg, cuda)
+    rng = np.random.default_rng(13)
+    sos = (1.0 + 0.4 * rng.random((96, 96))).astype(np.float32)
+    service = SolverService(IterativeSolver(cfg, params=params, device=cuda),
+                            ServeConfig(max_batch=2, chunk_iterations=4,
+                                        default_iterations=8))
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        fused_double_conv.launches = 0
+        out = service.solve(sos, timeout=300)
+        assert fused_double_conv.launches == 14 * 8 * service.stats()["batches"] == 14 * 8
+        assert out["batch_size"] == 1 and service.stats()["padded_slots"] == 1
+        direct = IterativeSolver(cfg, params=params, device=cuda).forward(
+            np.stack([sos, sos]), num_iterations=8, chunk_iterations=4)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+        service.shutdown()
+    # the same kernels on the same shapes (chip_smoke.py 13a's rtol)
+    np.testing.assert_allclose(out["rmse"], direct["rmse"][:, 0].cpu().numpy(), rtol=1e-6)
+    np.testing.assert_allclose(out["wavefield"], direct["wavefield"][0].cpu().numpy(),
+                               rtol=1e-6, atol=1e-6 * float(direct["wavefield"].abs().max()))
+    cpu = IterativeSolver(cfg, params=params_to(params, "cpu"), device="cpu").forward(
+        sos, num_iterations=4)
+    np.testing.assert_allclose(out["rmse"][:4], cpu["rmse"][:, 0].numpy(), rtol=0.05)

@@ -11,8 +11,9 @@ at bench.py's 512^2 x 8, batched GMRES on the stencil operator at
 256^2 x 16, unsupervised replay-buffer training at 96^2 x 32 with 10 unrolled
 steps, and the classical solvers (learned-preconditioned FGMRES,
 two-level, deflated GMRES, hybrid, `solve_auto`, `cli/solve`) with the
-tpu_r2c weights, and serving (`SolverService`, `cli/serve`) with the
-remaining 2D entry points, and checks them all:
+tpu_r2c weights, serving (`SolverService`, `cli/serve`) with the
+remaining 2D entry points, and the 3D solvers with the tpu3d_a and
+tpu3d_het weights, and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -127,7 +128,7 @@ remaining 2D entry points, and checks them all:
    matvec and no other launch, the first cycle within rtol 1e-6 of the
    plain matvec's, the last residual equal to the true one; (f) `cli/solve`
    on the 96^2 test set with the npz, rc 0 and the learned plan. Each of
-   (b)-(e) is timed: the wall of 3 solves after the counted one (median),
+   (b)-(e) is timed: the wall of a solve after the counted one,
    and one profiled solve's device time, busy share and busiest kernels;
 13. serving and the remaining 2D entry points with the tpu_r2c weights on
    the default config at full width and depth: (a) K1 against its plain
@@ -159,7 +160,47 @@ remaining 2D entry points, and checks them all:
    (roundtrips 30) against a float64 dense Helmholtz solve within 0.03
    and 0.06; (f) a seeded resnet (depth 3, features 8) 96^2 x 8 x 50
    rollout (cuDNN f32), no hand-kernel launch, the first 4 rmse within
-   rtol 1e-3 of the CPU path.
+   rtol 1e-3 of the CPU path;
+14. the 3D path (`solvers3d_phase`, callable alone: it needs no build,
+   since the JAX package has no 3D Pallas kernel and no hand kernel runs
+   here), every path's K1-K3 and K2a-c counts from 0 and required to stay
+   0: (a) `helmholtz_residual3d` at 2 x 48^3 and 2 x 64^3, matmul against
+   fft and the card against the CPU within 2e-5 max|ref|
+   (tests/test_spectral3d.py:39), each mode timed; (b) `IterativeSolver3D`
+   at full width and depth with trained_models/tpu3d_a_ep80.npz on the 16
+   volumes of datasets/val3d/tpu3d_a_val.npz (48^3) and
+   trained_models/tpu3d_het_ep49.npz on datasets/val3d/tpu3d_het_val.npz
+   (64^3), 400 iterations with the fixed and the seed-99 random sources of
+   tools/eval3d_trained.py: finite rmse and a median reduction (source rms
+   over best rmse) of at least 100x for each model and source kind
+   (TRAINING3D.md's bar), gridpoints/s, peak memory and a profile of 20
+   steps; for tpu3d_a also the first 4 rmse of 2 volumes within rtol 1e-3
+   of the CPU path, chunks of 100 equal to one run (rtol 1e-5) and the
+   sub-pixel up convs against the dilated ones at one call (rtol 1e-5,
+   atol 1e-6, tests/test_model3d.py:79-80), both under cuDNN's
+   deterministic algorithms; (c) CSLP `solve_helmholtz3d` (restart 20, 40
+   cycles, tol 1e-6) on volume 0 with the fixed source: the reported
+   residual equal to the true one (rtol 2e-2) and 14b's best field within
+   0.02 of it (PML-cropped relative l_inf); `solve_helmholtz3d_batch` on 4
+   volumes equal to their single solves within 1e-3 max|u|; (d)
+   `solve_fgmres_two_level3d` on tests/test_twolevel3d.py's 48^3 block
+   problem with the CSLP and the tpu3d_a learned smoother, device and host
+   cycles: the last reported residual equal to the true one (rtol 1e-3)
+   and both cycles' solutions within 2e-2 max|u|; (e) `solve_cw3d` on
+   tests/test_timedomain3d.py's two 48^3 problems against CSLP-GMRES
+   (0.05, 0.08) and `solve_cw3d_chunked(37)` equal to `solve_cw3d` at 16^3
+   (rtol 2e-5, atol 2e-6); (f) `solve_auto` on a 48^3 contrast-1 cube (the
+   `cslp3d` plan, to its tolerance) and on a 64^3 contrast-4 block (the
+   `two_level3d` plan, 3 cycles, falling), and `cli/solve` on a 3D npz
+   without `--source-npz` as a subprocess; (g) `Trainer3D` at the tpu3d_a
+   run's settings (48^3, buffer 96, batch 8, 10 unrolled, lr 1e-3,
+   p_random_source 0.5, remat) from the tpu3d_a weights on 96 volumes of
+   `make_dataset3d(seed=0)`: one step's loss and grads against the CPU
+   path at 2 experiences x 2 unrolled (phase 11's bounds), remat on
+   against off at 8 x 3 unrolled (rtol 1e-5, cuDNN deterministic), one
+   epoch of 12 steps finite with every leaf moved, the step's wall
+   (median of 5 after the first), a profiled step and the peak memory
+   with remat at 10 unrolled and without at 3.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -174,6 +215,7 @@ faulthandler.dump_traceback_later(1000, exit=True)
 T0 = time.perf_counter()
 
 import argparse  # noqa: E402
+import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import json  # noqa: E402
 import subprocess  # noqa: E402
@@ -227,7 +269,7 @@ SOLUTION_ATOL = 2e-2  # * max|u|: two FGMRES solutions, tests/test_fgmres.py:73
 # reported against the float64 true residual of the CSLP polish, whose
 # defect correction rounds b - A x0 once: tests/test_hybrid.py:101
 HYBRID_CSLP_RTOL, HYBRID_CSLP_ATOL = 5e-2, 1e-6
-CLASSICAL_TIMED = 3  # 12b-e: solves timed after the counted one
+CLASSICAL_TIMED = 1  # 12b-e: solves timed after the counted one (one: the time limit)
 SERVE_96, SERVE_256, SERVE_CLIENTS = 48, 16, 8  # 13a's burst: requests, clients
 SERVE_LOCS = ((60, 128), (128, 60), (128, 196), (200, 128))  # 13a: 256^2 sources
 SERVE_RMSE_FACTOR = 20.0  # 13a: rmse[0] / best_rmse per request, 12a's bound
@@ -236,6 +278,25 @@ EXAMPLE_ITERS = 100  # 13c: cli/example's default
 CMP_RTOL = 0.05  # 13d: compare_solvers on the card against the CPU path
 CW_GRID, CW_ROUNDTRIPS = 64, 30  # 13e: tests/test_timedomain.py:44-53
 RESNET_ITERS, RESNET_RTOL = 50, 1e-3  # 13f: cuDNN f32 against the CPU, first 4 rmse
+MODELS_3D = {  # 14b: the trained 3D models, their validation volumes, their grid
+    "tpu3d_a": ("trained_models/tpu3d_a_ep80.npz", "datasets/val3d/tpu3d_a_val.npz", 48),
+    "tpu3d_het": ("trained_models/tpu3d_het_ep49.npz", "datasets/val3d/tpu3d_het_val.npz",
+                  64),
+}
+ITERS_3D = 400  # 14b: tools/eval3d_trained.py's rollout
+REDUCTION_3D = 100.0  # 14b: source rms over best rmse, median; TRAINING3D.md's bar
+PROFILE_STEPS_3D = 20
+OP3D_RTOL = 2e-5  # 14a: * max|ref|, tests/test_spectral3d.py:39
+CPU3D_RTOL = 1e-3  # 14b: first 4 rmse against the CPU path
+CHUNK_3D, CHUNK_RTOL = 100, 1e-5  # 14b: chunks against one run, tests/test_model3d.py:106-112
+UP_RTOL, UP_ATOL = 1e-5, 1e-6  # 14b: subpixel against dilated, tests/test_model3d.py:79-80
+CSLP3D_RESTART, CSLP3D_CYCLES, CSLP3D_TOL = 20, 40, 1e-6  # 14c
+CSLP3D_TRUE_RTOL = 2e-2  # 14c: reported against true, tests/test_spectral3d.py:113
+ANCHOR_3D = 0.02  # 14c: PML-cropped rel l_inf, learned against CSLP-GMRES
+BATCH3D_RTOL = 1e-3  # 14c: batched against single solves, * max|u|
+AUTO3D_CYCLES = 3  # 14f: outer cycles of the two-level plan on the 64^3 cube
+REMAT_RTOL = 1e-5  # 14g: remat on against off, loss and each grad leaf
+TRAIN3D_PROFILE_STEPS = 1
 
 
 def log(msg: str) -> None:
@@ -327,7 +388,11 @@ def profile_steps(run, steps: int) -> dict:
     """Where a rollout's time goes: the wall per step of `run(steps)` on
     the host clock without the profiler, then the same steps traced with
     torch.profiler for the device time per step, the device's busy share
-    (device time over that wall) and the busiest kernels."""
+    (device time over that wall) and the busiest kernels. Only the device
+    activity is traced: the CPU ops would carry the same time again, and
+    processing their events took the profiler minutes on the Krylov
+    solves (about 4x the device-only time on an H100's host, the same
+    device time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -340,11 +405,10 @@ def profile_steps(run, steps: int) -> dict:
     run(steps)
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         run(steps)
         torch.cuda.synchronize()
-    # device-side events only (kernels, copies, memsets): the CPU ops that
-    # launched them carry the same time again
+    # device-side events (kernels, copies, memsets)
     kernels = sorted(
         ((e.key, device_us(e), e.count) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and device_us(e) > 0),
@@ -1474,6 +1538,513 @@ def serve_phase(dev, hand_kernels) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block (for equality
+    gates: with the default ones two runs of one recurrent rollout differ,
+    phase 13a)."""
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = prev
+
+
+def config3d(n: int, **training):
+    """The tpu3d runs' config (tools/train3d_tpu_run.py): the default with
+    an n^3 grid, depth 3, state depth 3, features 16, 7 input channels."""
+    from helmnet_tpu_torch.core.config import Config
+
+    cfg = Config()
+    return cfg.replace(
+        geometry=dataclasses.replace(cfg.geometry, domain_size=n),
+        model=dataclasses.replace(cfg.model, depth=3, state_depth=3, features=16,
+                                  in_channels=7),
+        training=dataclasses.replace(cfg.training, **training))
+
+
+def sources3d(cfg, count: int):
+    """tools/eval3d_trained.py:80-98: the fixed source (the 2D default
+    scaled to the grid) and `count` seeded (99) random interior sources,
+    each [count, n, n, n, 2]."""
+    from helmnet_tpu_torch.ops.spectral3d import point_source_map3d
+
+    n, s = cfg.geometry.domain_size, cfg.source
+    loc = tuple(max(4, min(n - 4, int(round(c * n / 96.0))))
+                for c in (s.location[0], s.location[1], 48))
+    fixed = np.broadcast_to(point_source_map3d(n, n, n, loc, s.amplitude)[None],
+                            (count, n, n, n, 2)).copy()
+    rng = np.random.default_rng(99)
+    margin = cfg.geometry.pml_size + 2
+    rand = np.stack([point_source_map3d(
+        n, n, n, tuple(int(v) for v in rng.integers(margin, n - margin, 3)), s.amplitude)
+        for _ in range(count)])
+    return {"fixed": fixed, "random": rand}
+
+
+def conv_flops3d(params, model, n: int) -> float:
+    """Operations of one `hybridnet3d.apply` on one n^3 volume, counted
+    from the weights' shapes: 2 x MACs of every conv at its output grid
+    (a transposed k=4, s=2 conv as its 8 octant convs of (k/2)^3 taps)."""
+    vox = lambda level: (n >> level) ** 3
+    macs = lambda p: p["w"].shape[0] * p["w"].shape[1] * p["w"][0, 0].numel()
+    dconv = lambda p, level: vox(level) * (macs(p["c1"]) + macs(p["c2"]))
+    total = dconv(params["inc"], 0) + vox(0) * macs(params["outc"])
+    for d in range(model.depth):
+        blk = params["enc"][d]
+        total += sum(dconv(blk[k], d) for k in ("conv_signal", "conv_state") if k in blk)
+        total += vox(d + 1) * macs(blk["down"]) + vox(d) * macs(params["up"][d]) / 8
+    total += sum(dconv(params["decode"][d], d) for d in range(model.depth + 1))
+    return 2.0 * total
+
+
+def relerr(got, ref) -> float:
+    """max|got - ref| / max|ref| on the host (0 where both are all zero)."""
+    got, ref = (np.asarray(t.detach().cpu() if isinstance(t, torch.Tensor) else t)
+                for t in (got, ref))
+    return float(np.abs(got - ref).max() / max(np.abs(ref).max(), 1e-30))
+
+
+def solvers3d_phase(dev, hand_kernels) -> dict:
+    """Phase 14: the 3D path on the card: the operator, the learned solve
+    with the tpu3d_a and tpu3d_het weights at their full width and depth,
+    CSLP-GMRES, two-level FGMRES, the time domain, `solve_auto` and
+    `cli/solve`, and `Trainer3D`. No hand kernel runs here (the JAX
+    package has no 3D Pallas kernel): every path's K1-K3 counts must stay 0.
+    Every gate failure exits; the returned dict holds what was measured.
+    `hand_kernels()` reads the launch counts of K2a, K2b, K2c, K1 and K3."""
+    import os
+    import tempfile
+
+    from helmnet_tpu_torch.data.ellipsoids3d import make_dataset3d
+    from helmnet_tpu_torch.models import hybridnet3d
+    from helmnet_tpu_torch.models.hybridnet import iter_leaves, params_to
+    from helmnet_tpu_torch.ops.spectral3d import (helmholtz_residual3d, make_operator3d,
+                                                  point_source_map3d)
+    from helmnet_tpu_torch.solvers.auto import choose_solver, solve_auto
+    from helmnet_tpu_torch.solvers.helm3d import solve_helmholtz3d, solve_helmholtz3d_batch
+    from helmnet_tpu_torch.solvers.iterative3d import IterativeSolver3D
+    from helmnet_tpu_torch.solvers.timedomain import solve_cw3d, solve_cw3d_chunked
+    from helmnet_tpu_torch.solvers.twolevel3d import solve_fgmres_two_level3d
+    from helmnet_tpu_torch.train.loop3d import FIELDS, Trainer3D
+    from helmnet_tpu_torch.weights import load_params3d_npz
+
+    t0 = time.perf_counter()
+    out = {"launches": {}}
+    zero = (0, 0, 0, 0, 0)
+
+    def counted(path: str, fn):
+        """fn() with every hand kernel's count set to 0 just before and read
+        just after; any launch fails the run."""
+        reset_counts()
+        result = fn()
+        torch.cuda.synchronize()
+        counts = hand_kernels()
+        out["launches"][path] = counts
+        if counts != zero:
+            fail(f"{path} launched a hand kernel: {counts}")
+        return result
+
+    # -- 14a: the operator at 48^3 and 64^3 -------------------------------------
+    out["operator"] = {}
+    for n in (48, 64):
+        rng = np.random.default_rng(n)
+        op = make_operator3d(n, n, n, 8, 2.0, 1.0, device=dev)
+        u, s = (rng.standard_normal((2, n, n, n, 2)).astype(np.float32) for _ in range(2))
+        k_sq = (1.0 + rng.random((2, n, n, n))).astype(np.float32)
+        args = [torch.tensor(a, device=dev) for a in (u, k_sq, s)]
+        res = {m: helmholtz_residual3d(op, *args, m) for m in ("matmul", "fft")}
+        cpu = helmholtz_residual3d(op.to("cpu"), *map(torch.tensor, (u, k_sq, s)), "matmul")
+        modes, vs_cpu = relerr(res["fft"], res["matmul"]), relerr(res["matmul"], cpu)
+        ms = {m: cuda_ms(lambda m=m: helmholtz_residual3d(op, *args, m), iters=20)
+              for m in ("matmul", "fft")}
+        log(f"phase 14a helmholtz_residual3d 2 x {n}^3: fft against matmul {modes:.3e}, "
+            f"card against CPU {vs_cpu:.3e} (of max|ref|, tol {OP3D_RTOL}); {ms['matmul']:.4f} "
+            f"ms matmul, {ms['fft']:.4f} ms fft a call")
+        if not (modes <= OP3D_RTOL and vs_cpu <= OP3D_RTOL):
+            fail(f"the 3D operator's modes or the card and the CPU disagree at {n}^3")
+        out["operator"][n] = {"fft_vs_matmul": modes, "card_vs_cpu": vs_cpu, "ms": ms}
+
+    # -- 14b: the learned 3D solve, tpu3d_a then tpu3d_het ----------------------
+    out["learned"] = {}
+    for tag, (npz, val_npz, n) in MODELS_3D.items():
+        cfg = config3d(n)
+        solver = IterativeSolver3D.from_params_npz(npz, cfg, device=dev)
+        with np.load(val_npz) as f:
+            val = f["val"]
+        b = len(val)
+        srcs = sources3d(cfg, b)
+        row = {"batch": b, "grid": n, "iterations": ITERS_3D}
+
+        def forward(src, sos, iters, **kw):
+            solver.set_source_maps(src)
+            return solver.forward(sos, num_iterations=iters, **kw)
+
+        for kind, src in srcs.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            res = counted(f"14b {tag} {kind} {b} x {n}^3 x {ITERS_3D}",
+                          lambda: forward(src, val, ITERS_3D))
+            wall = time.perf_counter() - t
+            rmse = res["rmse"].cpu().numpy()
+            best = res["best_rmse"].cpu().numpy()
+            rmse0 = np.sqrt(np.mean(src.astype(np.float64) ** 2, axis=(1, 2, 3, 4)))
+            reduction = float(np.median(rmse0 / best))
+            row[kind] = {"wall_s": wall, "gridpoints_per_s": b * n**3 * ITERS_3D / wall,
+                         "median_reduction": reduction, "best_rmse": best.tolist(),
+                         "median_best_rmse": float(np.median(best)),
+                         "peak_bytes": torch.cuda.max_memory_allocated()}
+            if kind == "fixed":
+                row["best_field_0"] = res["wavefield"][0].cpu().numpy()
+            log(f"phase 14b {tag} {kind} source {b} x {n}^3 x {ITERS_3D}: {wall:.2f} s, "
+                f"{b * n**3 * ITERS_3D / wall:.4e} gridpoints/s, peak "
+                f"{row[kind]['peak_bytes'] / 2**30:.3f} GiB; best rmse median "
+                f"{np.median(best):.4e}, median reduction {reduction:.1f}x (bar "
+                f"{REDUCTION_3D}x); rmse {rmse[0].mean():.4e} -> {rmse[-1].mean():.4e}")
+            if not np.isfinite(rmse).all() or not reduction >= REDUCTION_3D:
+                fail(f"the {tag} 3D solve ({kind} source) is not finite or falls short "
+                     f"of {REDUCTION_3D}x")
+        prof = profile_steps(lambda k: forward(srcs["fixed"], val, k), PROFILE_STEPS_3D)
+        row["profile"] = prof
+        row["gflop_per_step"] = b * conv_flops3d(solver.params, cfg.model, n) / 1e9
+        log(f"phase 14b {tag} profile of {PROFILE_STEPS_3D} steps: wall "
+            f"{prof['wall_ms_per_step']:.2f} ms/step, device {prof['device_ms_per_step']:.2f} "
+            f"ms/step, busy share {prof['busy_share']:.4f}; the convs' "
+            f"{row['gflop_per_step']:.1f} GFLOP a step at "
+            f"{row['gflop_per_step'] / prof['device_ms_per_step']:.2f} TFLOP/s of device time")
+        for k in prof["top"][:5]:
+            print(f"    {k['device_ms_per_step']:.4f} ms/step {k['calls_per_step']:6.1f} "
+                  f"calls/step  {k['name']}", flush=True)
+        if tag == "tpu3d_a":
+            two = srcs["fixed"][:2], val[:2]
+            card = forward(*two, 4)["rmse"].cpu().numpy()
+            cpu_solver = IterativeSolver3D(cfg, params=params_to(solver.params, "cpu"),
+                                           device="cpu")
+            cpu_solver.set_source_maps(two[0])
+            cpu = cpu_solver.forward(two[1], num_iterations=4)["rmse"].numpy()
+            row["cpu_rel_diff"] = float(np.max(np.abs(card - cpu) / cpu))
+            with deterministic_cudnn():
+                full = forward(*two, ITERS_3D, best_iterate=False)["rmse"].cpu().numpy()
+                chunked = forward(*two, ITERS_3D, best_iterate=False,
+                                  chunk_iterations=CHUNK_3D)["rmse"].cpu().numpy()
+                row["chunk_rel_diff"] = float(np.max(np.abs(chunked - full) / full))
+                gen = torch.Generator(device=dev).manual_seed(14)
+                x = torch.randn((2, n, n, n, 7), generator=gen, device=dev)
+                states = tuple(torch.randn(s.shape, generator=gen, device=dev) for s in
+                               hybridnet3d.init_states(2, n, cfg.model, device=dev))
+                outs = {m: hybridnet3d.apply(solver.params, x, states, cfg=dataclasses.replace(
+                    cfg.model, up_mode=m))[0] for m in ("dilated", "subpixel")}
+                gap = (outs["subpixel"] - outs["dilated"]).abs()
+                limit = UP_ATOL + UP_RTOL * outs["dilated"].abs()
+                row["up_mode_worst"] = float((gap / limit).max())
+            log(f"phase 14b tpu3d_a: first 4 rmse of 2 volumes against the CPU path max "
+                f"rel diff {row['cpu_rel_diff']:.3e} (rtol {CPU3D_RTOL}); chunks of {CHUNK_3D} "
+                f"against one run of {ITERS_3D} {row['chunk_rel_diff']:.3e} (rtol "
+                f"{CHUNK_RTOL}); subpixel against dilated up convs at "
+                f"{row['up_mode_worst']:.3f} of atol {UP_ATOL} + rtol {UP_RTOL} (cuDNN "
+                f"deterministic)")
+            if not (row["cpu_rel_diff"] <= CPU3D_RTOL and row["chunk_rel_diff"] <= CHUNK_RTOL
+                    and row["up_mode_worst"] <= 1.0):
+                fail("the tpu3d_a solve disagrees with the CPU path, its chunked run or "
+                     "the other up mode")
+        out["learned"][tag] = row
+        del solver
+
+    # -- 14c: CSLP-GMRES on validation volume 0 --------------------------------
+    npz, val_npz, n = MODELS_3D["tpu3d_a"]
+    cfg = config3d(n)
+    g = cfg.geometry
+    op = make_operator3d(n, n, n, g.pml_size, g.sigma_max, cfg.k0, device=dev)
+    with np.load(val_npz) as f:
+        val = f["val"][:4]
+    src = sources3d(cfg, 4)["fixed"]
+    k_sq = (cfg.source.omega / val) ** 2
+    kw = dict(restart=CSLP3D_RESTART, max_restarts=CSLP3D_CYCLES, tol=CSLP3D_TOL,
+              precond="shifted_laplace", device=dev)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = counted("14c solve_helmholtz3d 48^3", lambda: solve_helmholtz3d(
+        op, k_sq[0], src[0], **kw))
+    cslp_s = time.perf_counter() - t
+    norms = res.residual_norms.cpu().numpy()
+    r = helmholtz_residual3d(op, res.x, torch.tensor(k_sq[0], device=dev),
+                             torch.tensor(src[0], device=dev))
+    true = float(torch.linalg.vector_norm(r))
+    gap = float(abs(norms[-1] - true) / true)
+    p = g.pml_size + 2
+    crop = (slice(p, n - p),) * 3
+    learned = out["learned"]["tpu3d_a"].pop("best_field_0")
+    anchor = relerr(learned[crop], res.x.cpu().numpy()[crop])
+    for row in out["learned"].values():
+        row.pop("best_field_0", None)
+    prof = profile_steps(lambda _: solve_helmholtz3d(op, k_sq[0], src[0], **dict(
+        kw, max_restarts=2)), 1)
+    log(f"phase 14c solve_helmholtz3d CSLP ({CSLP3D_RESTART} x {CSLP3D_CYCLES}, tol "
+        f"{CSLP3D_TOL}) {n}^3 volume 0: {cslp_s:.2f} s, rel residual "
+        f"{norms[-1] / norms[0]:.3e}; reported against true {gap:.3e} (rtol "
+        f"{CSLP3D_TRUE_RTOL}); the learned best field against it (PML-cropped rel "
+        f"l_inf) {anchor:.4f} (tol {ANCHOR_3D}); profile of 2 cycles: device "
+        f"{prof['device_ms_per_step']:.2f} ms of {prof['wall_ms_per_step']:.1f} ms, busy "
+        f"share {prof['busy_share']:.4f}")
+    if not (np.isfinite(norms).all() and gap <= CSLP3D_TRUE_RTOL and anchor <= ANCHOR_3D):
+        fail("3D CSLP-GMRES's residual or its agreement with the learned solve failed")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    batch = counted("14c solve_helmholtz3d_batch 4 x 48^3", lambda: solve_helmholtz3d_batch(
+        op, k_sq, src, **kw))
+    batch_s = time.perf_counter() - t
+    singles = [res] + [solve_helmholtz3d(op, k_sq[i], src[i], **kw) for i in (1, 2, 3)]
+    batch_gap = max(relerr(batch.x[i], singles[i].x) for i in range(4))
+    log(f"phase 14c solve_helmholtz3d_batch 4 x {n}^3: {batch_s:.2f} s; each against its "
+        f"single solve {batch_gap:.3e} of max|u| (rtol {BATCH3D_RTOL})")
+    if not batch_gap <= BATCH3D_RTOL:
+        fail("the batched 3D solve disagrees with the single solves")
+    out["cslp"] = {"seconds": cslp_s, "relres": float(norms[-1] / norms[0]),
+                   "true_rel_diff": gap, "anchor": anchor, "batch_seconds": batch_s,
+                   "batch_rel_diff": batch_gap, "profile": prof}
+
+    # -- 14d: two-level FGMRES, CSLP and learned smoothers ----------------------
+    rng = np.random.default_rng(7)
+    sos = np.ones((n, n, n), np.float32)
+    lo, hi = n // 3, 2 * n // 3
+    sos[lo:hi, lo:hi, lo:hi] = 1.0 + 0.8 * rng.random((hi - lo,) * 3).astype(np.float32)
+    k_sq = (cfg.k0 / sos) ** 2
+    src = point_source_map3d(n, n, n, (n - 12, n // 2, n // 2), 10.0, 0.0, cfg.k0)
+    a_params = load_params3d_npz(npz, cfg, device=dev)
+    out["two_level"] = {}
+    for smoother, kw in (("cslp", dict(restart=8, max_restarts=8, tol=1e-6)),
+                         ("learned", dict(restart=8, max_restarts=6, tol=1e-5,
+                                          params=a_params, cfg=cfg))):
+        fields, rows = {}, {}
+        for host in (False, True):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = counted(f"14d two-level {smoother} {'host' if host else 'device'} 48^3",
+                          lambda: solve_fgmres_two_level3d(
+                              op, src, k_sq, k0=cfg.k0, pml_size=g.pml_size,
+                              sigma_max=g.sigma_max, smoother=smoother, coarse_restart=16,
+                              coarse_max_restarts=2, host_arnoldi=host, device=dev, **kw))
+            wall = time.perf_counter() - t
+            norms = res.residual_norms.numpy()
+            r = helmholtz_residual3d(op, res.wavefield, torch.tensor(k_sq, device=dev),
+                                     torch.tensor(src, device=dev))
+            true = float(torch.linalg.vector_norm(r)) / float(np.linalg.norm(src))
+            rows["host" if host else "device"] = {
+                "wall_s": wall, "residual_norms": norms.tolist(),
+                "true_rel_diff": float(abs(norms[-1] - true) / true)}
+            fields[host] = res.wavefield.cpu().numpy()
+        # one cycle of 2 applications: tracing a whole solve's launches
+        # takes the profiler minutes
+        prof = profile_steps(lambda _: solve_fgmres_two_level3d(
+            op, src, k_sq, k0=cfg.k0, pml_size=g.pml_size, sigma_max=g.sigma_max,
+            smoother=smoother, coarse_restart=16, coarse_max_restarts=2, device=dev,
+            **dict(kw, restart=2, max_restarts=1)), 1)
+        same = relerr(fields[True], fields[False])
+        rows.update(host_vs_device=same, profile=prof)
+        out["two_level"][smoother] = rows
+        log(f"phase 14d solve_fgmres_two_level3d {smoother} smoother {n}^3: device cycle "
+            f"{rows['device']['wall_s']:.2f} s to {rows['device']['residual_norms'][-1]:.3e}, "
+            f"host cycle {rows['host']['wall_s']:.2f} s to "
+            f"{rows['host']['residual_norms'][-1]:.3e}; reported against true "
+            f"{rows['device']['true_rel_diff']:.3e} / {rows['host']['true_rel_diff']:.3e} "
+            f"(rtol {RELRES_RTOL}); host against device solution {same:.3e} of max|u| (tol "
+            f"{SOLUTION_ATOL}); 2 applications: device {prof['device_ms_per_step']:.1f} ms of "
+            f"{prof['wall_ms_per_step']:.1f} ms, busy share {prof['busy_share']:.4f}")
+        if not (max(rows[k]["true_rel_diff"] for k in ("device", "host")) <= RELRES_RTOL
+                and same <= SOLUTION_ATOL):
+            fail(f"3D two-level FGMRES ({smoother}) failed its gates")
+
+    # -- 14e: the time domain against CSLP-GMRES -------------------------------
+    out["timedomain"] = {}
+    het = np.ones((n, n, n), np.float32)
+    het[18:26, 14:34, 14:34] = 1.5
+    for name, sos, loc, tol in (("homogeneous", np.ones((n, n, n), np.float32), (32, 24, 24),
+                                 0.05), ("heterogeneous", het, (34, 24, 24), 0.08)):
+        amp = np.zeros((n, n, n), np.float32)
+        amp[loc] = 1.0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        td = counted(f"14e solve_cw3d {name} 48^3", lambda: solve_cw3d(
+            sos, amp, omega=1.0, cfl=0.2, roundtrips=12, record_periods=3, sponge_width=10,
+            sponge_strength=1.0, device=dev))
+        td_s = time.perf_counter() - t
+        op8 = make_operator3d(n, n, n, 8, 2.0, 1.0, device=dev)
+        hh = solve_helmholtz3d(op8, (1.0 / sos) ** 2, point_source_map3d(n, n, n, loc, 1.0),
+                               precond="shifted_laplace", restart=15, max_restarts=40,
+                               tol=1e-7, device=dev)
+        cx = lambda a: a[..., 0].astype(np.float64) + 1j * a[..., 1]
+        p_td, p_hh = cx(td.phasor.cpu().numpy()), cx(hh.x.cpu().numpy())
+        p_td, p_hh = p_td / p_td[loc], p_hh / p_hh[loc]
+        inner = np.s_[14:-14, 14:-14, 14:-14]  # tests/test_timedomain3d.py:48-54
+        err = min(np.abs(p_td - p_hh)[inner].max(), np.abs(np.conj(p_td) - p_hh)[inner].max())
+        err = float(err / np.abs(p_hh[inner]).max())
+        log(f"phase 14e solve_cw3d {name} {n}^3: {td.num_steps} steps in {td_s:.2f} s "
+            f"({1e6 * td_s / td.num_steps:.1f} us a step); against CSLP-GMRES {err:.4e} "
+            f"(tol {tol})")
+        if not err < tol:
+            fail(f"solve_cw3d {name} disagrees with the Helmholtz solve")
+        out["timedomain"][name] = {"steps": td.num_steps, "seconds": td_s, "rel_err": err}
+    sos16 = np.ones((16, 16, 16), np.float32)
+    sos16[6:10, 5:11, 5:11] = 1.4
+    amp16 = np.zeros((16, 16, 16), np.float32)
+    amp16[11, 8, 8] = 1.0
+    kw16 = dict(omega=1.0, cfl=0.2, roundtrips=3, record_periods=2, sponge_width=4,
+                sponge_strength=1.0, device=dev)
+    mono = solve_cw3d(sos16, amp16, **kw16)
+    chunked = solve_cw3d_chunked(sos16, amp16, chunk_steps=37, **kw16)
+    gap = (chunked.phasor - mono.phasor).abs()
+    worst = float((gap / (2e-6 + 2e-5 * mono.phasor.abs())).max())
+    log(f"phase 14e solve_cw3d_chunked(37) against solve_cw3d at 16^3: {chunked.num_steps} "
+        f"/ {mono.num_steps} steps, phasor at {worst:.3f} of atol 2e-6 + rtol 2e-5")
+    if chunked.num_steps != mono.num_steps or worst > 1.0:
+        fail("the chunked 3D time-domain solve differs from the monolithic one")
+    out["timedomain"]["chunked_worst"] = worst
+
+    # -- 14f: solve_auto and cli/solve in 3D ----------------------------------
+    sos = np.ones((n, n, n), np.float32)
+    c = (slice(n // 4, 3 * n // 4),) * 3
+    sos[c] = 1.0 + np.random.default_rng(0).random(sos[c].shape, np.float32)
+    src = point_source_map3d(n, n, n, (n - 12, n // 2, n // 2), 10.0)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res, plan = counted("14f solve_auto cslp3d 48^3", lambda: solve_auto(
+        src, sos, cfg=cfg, tol=1e-4, device=dev))
+    auto_s = time.perf_counter() - t
+    norms = res.residual_norms.cpu().numpy()
+    ext = np.ones((64, 64, 64), np.float32)
+    ext[16:48, 16:48, 16:48] = 4.0
+    ext_plan = choose_solver(ext, cfg=cfg)
+    cfg64 = config3d(64)
+    src64 = point_source_map3d(64, 64, 64, (52, 32, 32), 10.0)
+    t = time.perf_counter()
+    ext_res, _ = counted("14f solve_auto two_level3d 64^3", lambda: solve_auto(
+        src64, ext, cfg=cfg64, tol=1e-4, max_restarts=AUTO3D_CYCLES, device=dev))
+    ext_s = time.perf_counter() - t
+    ext_norms = ext_res.residual_norms.numpy()
+    log(f"phase 14f solve_auto {n}^3 contrast 1: plan {plan.method}, {auto_s:.2f} s, rel "
+        f"residual {norms[-1] / norms[0]:.3e} (tol 1e-4); 64^3 contrast 4 block: plan "
+        f"{ext_plan.method}, {AUTO3D_CYCLES} cycles in {ext_s:.2f} s, relres "
+        f"{[float(f'{x:.3e}') for x in ext_norms]}")
+    if plan.method != "cslp3d" or not norms[-1] <= 1e-4 * norms[0]:
+        fail("3D solve_auto did not take cslp3d or did not reach its tolerance")
+    if ext_plan.method != "two_level3d" or not np.all(np.diff(ext_norms) < 0):
+        fail("3D solve_auto on the extreme cube did not take two_level3d or stalled")
+    with tempfile.TemporaryDirectory() as tmp:
+        cube = os.path.join(tmp, "cube.npz")
+        np.savez(cube, maps=sos)
+        proc = subprocess.run([sys.executable, "-m", "helmnet_tpu_torch.cli.solve", "--sos",
+                               cube, "--out", os.path.join(tmp, "out.npz")],
+                              capture_output=True, text=True, timeout=300)
+    cli_lines = proc.stdout.strip().splitlines()
+    log(f"phase 14f cli/solve on a {n}^3 cube (default source) as a subprocess: rc "
+        f"{proc.returncode}, {cli_lines[:1]} {cli_lines[-2:]}")
+    if proc.returncode != 0 or not cli_lines or cli_lines[0] != "plan: cslp3d":
+        fail(f"cli/solve in 3D failed: {proc.stderr[-2000:]}")
+    out["auto"] = {"cslp3d_s": auto_s, "cslp3d_relres": float(norms[-1] / norms[0]),
+                   "two_level3d_s": ext_s, "two_level3d_norms": ext_norms.tolist(),
+                   "cli": cli_lines}
+
+    # -- 14g: Trainer3D at the tpu3d_a run's settings ----------------------------
+    tkw = dict(buffer_size=96, train_batch_size=8, unrolling_steps=10, learning_rate=1e-3,
+               p_random_source=0.5, remat=True)
+    tcfg = config3d(n, **tkw)
+    maps = make_dataset3d(96, n, seed=0)
+    params = load_params3d_npz(npz, tcfg, device=dev)
+    small = Trainer3D(config3d(n, **dict(tkw, unrolling_steps=2)), params=params, device=dev)
+    small.fill_buffer(maps)
+    idx = torch.tensor([3, 50], device=dev)
+    batch = {k: small._buf[k][idx] for k in FIELDS}
+
+    def grads_of(trainer, b):
+        loss, _ = trainer.unrolled_loss(b)
+        leaves = [t for _, t in iter_leaves(trainer.params)]
+        return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
+    card_loss, card_grads = grads_of(small, batch)
+    cpu_tr = Trainer3D(small.cfg, params=params_to(params, "cpu"), device="cpu")
+    cpu_loss, cpu_grads = grads_of(cpu_tr, {k: v.cpu() for k, v in batch.items()})
+    loss_gap = abs(card_loss - cpu_loss) / abs(cpu_loss)
+    limits = (TRAIN_GRAD_RTOL * (r.abs().max() + r.abs()).clamp_min(1e-30) for r in cpu_grads)
+    worst = max(float(((g.cpu() - r).abs() / lim).max())
+                for g, r, lim in zip(card_grads, cpu_grads, limits))
+    log(f"phase 14g one step (2 experiences x 2 unrolled) on the card against the CPU "
+        f"path: loss {card_loss:.6e} / {cpu_loss:.6e}, rel diff {loss_gap:.3e} (rtol "
+        f"{TRAIN_LOSS_RTOL}); grads at {worst:.3f} of atol {TRAIN_GRAD_RTOL}*max|ref| + "
+        f"rtol {TRAIN_GRAD_RTOL}")
+    if not (loss_gap <= TRAIN_LOSS_RTOL and worst <= 1.0):
+        fail("a 3D training step on the card disagrees with the CPU path")
+    remat = {}
+    peak_off = None
+    with deterministic_cudnn():
+        for on in (False, True):
+            tr = Trainer3D(config3d(n, **dict(tkw, unrolling_steps=3, remat=on)),
+                           params=params, device=dev)
+            b8 = {k: small._buf[k][torch.arange(8, device=dev)] for k in FIELDS}
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            remat[on] = grads_of(tr, b8)
+            torch.cuda.synchronize()
+            if not on:
+                peak_off = torch.cuda.max_memory_allocated()
+            del tr
+    remat_gap = max([abs(remat[True][0] - remat[False][0]) / abs(remat[False][0])] + [
+        relerr(a, b) for a, b in zip(remat[True][1], remat[False][1])])
+    log(f"phase 14g remat on against off (8 x 3 unrolled, cuDNN deterministic): loss and "
+        f"grads max rel diff {remat_gap:.3e} (rtol {REMAT_RTOL}); peak with remat off "
+        f"{peak_off / 2**30:.3f} GiB")
+    if not remat_gap <= REMAT_RTOL:
+        fail("remat changes the 3D step's loss or grads")
+    del small, cpu_tr, remat
+
+    train = Trainer3D(tcfg, params=params, device=dev)
+    train.fill_buffer(maps)
+    train.epoch = 1  # maxiter 21: evolved experiences can return to the buffer
+    start = {p: t.detach().clone() for p, t in iter_leaves(train.params)}
+    epoch = counted(f"14g Trainer3D epoch 12 x 8 x {n}^3 x 10", train.training_epoch)
+    moved = [p for p, t in iter_leaves(train.params) if not torch.equal(t.detach(), start[p])]
+    log(f"phase 14g one epoch of {epoch['global_step']} steps: loss "
+        f"{epoch['train_loss_mean']:.6e}, grad norm {epoch['grad_norm_mean']:.4e}, maxiter "
+        f"{epoch['maxiter']}, restarts {epoch['new_sos']} of {8 * epoch['global_step']}, "
+        f"{epoch['epoch_time_s']:.2f} s; {len(moved)} of {len(start)} leaves moved")
+    if not (np.isfinite(epoch["train_loss_mean"]) and np.isfinite(epoch["grad_norm_mean"])
+            and len(moved) == len(start)):
+        fail("the 3D training epoch is not finite or left a leaf unmoved")
+    maxiter = train.max_allowed_iterations()
+    walls = []
+    for i in range(TRAIN_TIMED + 1):
+        torch.cuda.synchronize()
+        if i == 1:
+            torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        train.device_step(maxiter)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    peak_on = torch.cuda.max_memory_allocated()
+    prof = profile_steps(lambda k: [train.device_step(maxiter) for _ in range(k)],
+                         TRAIN3D_PROFILE_STEPS)
+    step_wall = float(np.median(walls[1:]))
+    # forward, its recompute (remat), data and weight gradients: 4 forwards
+    step_tflop = 4 * 8 * 10 * conv_flops3d(params, tcfg.model, n) / 1e12
+    log(f"phase 14g train step (8 x {n}^3 x 10 unrolled, remat, the convs' "
+        f"{step_tflop:.2f} TFLOP): wall {1e3 * step_wall:.1f} "
+        f"ms (median of {TRAIN_TIMED} after the first; all "
+        f"{[round(1e3 * w, 1) for w in walls]}); profile of {TRAIN3D_PROFILE_STEPS}: device "
+        f"{prof['device_ms_per_step']:.1f} ms/step, busy share {prof['busy_share']:.4f}; peak "
+        f"{peak_on / 2**30:.3f} GiB with remat at 10 unrolled")
+    for k in prof["top"][:5]:
+        print(f"    {k['device_ms_per_step']:.3f} ms/step {k['calls_per_step']:6.1f} "
+              f"calls/step  {k['name']}", flush=True)
+    out["training"] = {"cpu_loss_rel_diff": loss_gap, "cpu_grad_worst": worst,
+                       "step_tflop": step_tflop,
+                       "remat_rel_diff": remat_gap, "epoch": epoch,
+                       "step_walls_s": walls, "step_wall_s": step_wall, "profile": prof,
+                       "peak_bytes_remat_on_u10": peak_on, "peak_bytes_remat_off_u3": peak_off}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 14 done in {out['seconds']:.1f} s")
+    return out
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -2140,6 +2711,11 @@ def main() -> int:
     # -- 13. serving and the remaining 2D entry points ---------------------
     serving = serve_phase(dev, launch_counts)
 
+    # -- 14. the 3D solvers, trainer and time domain ------------------------
+    solvers3d = solvers3d_phase(dev, launch_counts)
+    paths3d = solvers3d["launches"]  # every 3D path's counts, each from 0
+    by_path3d = lambda i: {path: c[i] for path, c in paths3d.items()}
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -2166,6 +2742,7 @@ def main() -> int:
                for k in classical["fgmres"]},
             "12d solve_auto two-level 512^2": classical["auto_512"]["k1_launches"],
             "phase 13 serve": serving["burst"]["k1_launches"],
+            **by_path3d(3),
         },
     }, {
         "name": "packed_double_conv",
@@ -2182,6 +2759,7 @@ def main() -> int:
                      else "bytes"),
         "library_ms": k3_total("library_ms"),
         "tiles": {r["name"]: "x".join(map(str, r["tile"])) for r in k3_rows},
+        "launches_by_path": by_path3d(4),
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2196,11 +2774,13 @@ def main() -> int:
         "bound_by": row["bound_by"],
         "library_ms": row["library_ms"],  # cuSPARSE on the complex64 CSR
         "variant": row["variant"],  # the kernel's instance
-        **({"launches_by_path": {
-            "phase 10 GMRES 16 x 256^2": launches_k2,
-            "12e solve_helmholtz_deflated 256^2": classical["deflated"]["k2a_launches"],
-        }} if name == "residual_planes" else {}),
-    } for name, replaces, launches_k2, row in (
+        "launches_by_path": {
+            **({"phase 10 GMRES 16 x 256^2": launches_k2,
+                "12e solve_helmholtz_deflated 256^2": classical["deflated"]["k2a_launches"]}
+               if name == "residual_planes" else {}),
+            **by_path3d(k2_index),
+        },
+    } for k2_index, (name, replaces, launches_k2, row) in enumerate((
         # per call on each kernel's main path: K2a at GMRES's matvec
         # (16 x 256^2 complex64, no source), K2b and K2c at 512^2 x 8
         ("residual_planes", "helmnet_tpu/ops/pallas_stencil.py:212",
@@ -2210,7 +2790,7 @@ def main() -> int:
          chains["K2b"]["launches"], k2_rows["K2b"]),
         ("residual_planes_mxu", "helmnet_tpu/ops/pallas_stencil.py:452",
          chains["K2c"]["launches"], k2_rows["K2c"]),
-    )]}
+    ))]}
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"device": kind, "nvidia_smi": smi, "ptxas": resources,
@@ -2241,7 +2821,7 @@ def main() -> int:
                            "scipy_scale": float(scipy_scale),
                            "profile": gmres_profile},
                        "training": training, "classical": classical,
-                       "serving": serving,
+                       "serving": serving, "solvers3d": solvers3d,
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

@@ -4,7 +4,8 @@ A second package beside `helmnet_tpu/`, which stays the reference that
 each module here is tested against. The layout mirrors it (`core/`,
 `ops/`, `models/`, `solvers/`, `train/`, `eval/`, `cli/`), and the public
 layout is the same: NHWC channel pairs `[B, H, W, 2]` for wavefields,
-residuals and sources, and `[B, H, W]` for sound-speed maps.
+residuals and sources, and `[B, H, W]` for sound-speed maps (in 3D NDHWC
+`[B, D, H, W, 2]` and `[B, D, H, W]`).
 
 The port imports `torch` and numpy, never `jax` or `helmnet_tpu`. Entry
 points put their tensors on `cuda` unless the caller passes
@@ -13,12 +14,8 @@ Importing the package initialises no CUDA context and builds no kernel:
 the kernels are built at their first launch.
 
 `__all__` holds the JAX package's public names that are ported, under
-the same names. Not ported yet: the 3D names (`hybridnet3d`,
-`SpectralPML3D`, `laplacian3d`, `helmholtz_residual3d`,
-`make_operator3d`, `point_source_map3d`, `solve_helmholtz3d`,
-`solve_helmholtz3d_batch`, `solve_fgmres_two_level3d`,
-`IterativeSolver3D`, `rollout3d`, `solve_cw3d`, `solve_cw3d_chunked`),
-`make_mesh`, and `checked` / `check_finite` / `debug_nans`.
+the same names. Not ported yet: `make_mesh`, and `checked` /
+`check_finite` / `debug_nans`.
 """
 
 __version__ = "0.1.0"
@@ -34,7 +31,7 @@ from .core.config import (  # noqa: F401
     load_settings,
 )
 from .data.ellipses import make_dataset as make_ellipses_dataset  # noqa: F401
-from .models import hybridnet, resnet  # noqa: F401
+from .models import hybridnet, hybridnet3d, resnet  # noqa: F401
 from .models.activations import get_activation  # noqa: F401
 from .models.blocks import conv2d, conv_transpose2d, double_conv  # noqa: F401
 from .models.convgru import convgru, init_convgru  # noqa: F401
@@ -45,6 +42,13 @@ from .ops.spectral import (  # noqa: F401
     helmholtz_residual,
     laplacian,
     make_operator,
+)
+from .ops.spectral3d import (  # noqa: F401
+    SpectralPML3D,
+    helmholtz_residual3d,
+    laplacian3d,
+    make_operator3d,
+    point_source_map3d,
 )
 from .ops.stencil import (  # noqa: F401
     StencilPML,
@@ -74,7 +78,10 @@ from .solvers.deflation import (  # noqa: F401
 from .solvers.hybrid import solve_hybrid  # noqa: F401
 from .serve import ServeConfig, SolverService  # noqa: F401
 from .solvers.iterative import IterativeSolver, rollout  # noqa: F401
-from .solvers.timedomain import solve_cw  # noqa: F401
+from .solvers.timedomain import solve_cw, solve_cw3d, solve_cw3d_chunked  # noqa: F401
+from .solvers.helm3d import solve_helmholtz3d, solve_helmholtz3d_batch  # noqa: F401
+from .solvers.iterative3d import IterativeSolver3D, rollout3d  # noqa: F401
+from .solvers.twolevel3d import solve_fgmres_two_level3d  # noqa: F401
 from .train.checkpoint import load_reference_checkpoint  # noqa: F401
 from .train.loop import Trainer  # noqa: F401
 from .train.replay import ExperienceBatch, ReplayBuffer  # noqa: F401
@@ -91,6 +98,7 @@ __all__ = [
     "make_ellipses_dataset",
     "hybridnet",
     "resnet",
+    "hybridnet3d",
     "get_activation",
     "get_architecture",
     "conv2d",
@@ -107,6 +115,18 @@ __all__ = [
     "helmholtz_residual_stencil",
     "make_operator",
     "make_stencil_operator",
+    "SpectralPML3D",
+    "laplacian3d",
+    "helmholtz_residual3d",
+    "make_operator3d",
+    "point_source_map3d",
+    "solve_helmholtz3d",
+    "solve_helmholtz3d_batch",
+    "solve_fgmres_two_level3d",
+    "IterativeSolver3D",
+    "rollout3d",
+    "solve_cw3d",
+    "solve_cw3d_chunked",
     "solve_helmholtz",
     "solve_helmholtz_checked",
     "solve_helmholtz_batch",

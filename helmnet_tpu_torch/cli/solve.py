@@ -1,9 +1,9 @@
 """Solve one Helmholtz problem with the policy's solver, port of
-`helmnet_tpu/cli/solve.py` (2D).
+`helmnet_tpu/cli/solve.py`.
 
 Routes through solvers/auto.solve_auto, which picks learned, CSLP,
-two-level or recycled two-level from the problem's grid size,
-wavelengths across and heterogeneity, and says why.
+two-level or recycled two-level (in 3D CSLP or two-level) from the
+problem's grid size, wavelengths across and heterogeneity, and says why.
 
     python -m helmnet_tpu_torch.cli.solve --sos maps.npz --index 0 \\
         --checkpoint trained_models/tpu_r2c_best.npz --tol 1e-4 \\
@@ -13,7 +13,9 @@ Runs on the card (`--platform cuda`, the default; raises without one) or
 the CPU. `--checkpoint` takes a flat params `.npz` (from
 `tools/export_orbax_npz.py`) or a reference `.ckpt`; an orbax directory
 is refused. With --dry-run it prints the plan (method, rationale,
-evidence) without solving. 3D problems raise NotImplementedError.
+evidence) without solving. A [D, H, W] cube is a 3D problem; its default
+point source is the 2D default scaled to the grid, at the middle of the
+last axis (`ops/spectral3d.point_source_map3d`).
 """
 
 import argparse
@@ -48,7 +50,7 @@ def main(argv=None):
                    help="params .npz or reference .ckpt (enables the learned family)")
     p.add_argument("--source-location", type=int, nargs="+", default=None)
     p.add_argument("--source-npz", type=str, default=None,
-                   help="npz with a [H, W, 2] source map; overrides "
+                   help="npz with a [H, W, 2] (or [D, H, W, 2]) source map; overrides "
                         "--source-location")
     p.add_argument("--amplitude", type=float, default=10.0)
     p.add_argument("--omega", type=float, default=1.0)
@@ -67,7 +69,8 @@ def main(argv=None):
     from ..core.config import Config
     from ..core.device import resolve_device
     from ..ops.source import point_source_map
-    from ..solvers.auto import NOT_PORTED_3D, choose_solver, solve_auto
+    from ..ops.spectral3d import point_source_map3d
+    from ..solvers.auto import choose_solver, solve_auto
 
     # cuda goes through the default, which raises without a card
     device = resolve_device(None if args.platform == "cuda" else args.platform)
@@ -80,8 +83,7 @@ def main(argv=None):
     else:
         sos = maps[args.index]
     sos = np.asarray(sos, np.float32)
-    if sos.ndim == 3:
-        raise NotImplementedError(NOT_PORTED_3D)
+    is_3d = sos.ndim == 3
 
     cfg = Config()
     cfg = cfg.replace(
@@ -114,7 +116,9 @@ def main(argv=None):
             loc = tuple(args.source_location)
         else:
             loc = tuple(int(c * max(sos.shape) / 96) for c in Config().source.location)
-        src = point_source_map(*sos.shape, loc, args.amplitude, 0.0, args.omega)
+            loc = loc if not is_3d else (loc[0], loc[1], sos.shape[2] // 2)
+        make_source = point_source_map3d if is_3d else point_source_map
+        src = make_source(*sos.shape, loc, args.amplitude, 0.0, args.omega)
 
     t0 = time.time()
     res, plan = solve_auto(src, sos, cfg=cfg, params=params, tol=args.tol,

@@ -1,5 +1,5 @@
 """solve_auto: one entry point that executes the solver policy, port of
-`helmnet_tpu/solvers/auto.py` (2D branches).
+`helmnet_tpu/solvers/auto.py`.
 
 | regime                                   | method                 | evidence (result files of the JAX package) |
 |------------------------------------------|------------------------|--------------------------------------------|
@@ -8,7 +8,8 @@
 | >= 512^2, contrast > 1.45                | two-level FGMRES       | skull_auto_512; fgmres_1024_twolevel_r3_fft |
 | 1024^2 and up, mild contrast             | CSLP-GMRES             | adjudication_1024; twolevel_2048_highk.cslp_comparison |
 | >= 4096^2                                | two-level + recycling  | helm_4096_recycled; helm_8192_recycled |
-| 3D                                       | CSLP / two-level 3D    | not ported: NotImplementedError |
+| 3D, contrast <= 2.5                      | CSLP-GMRES 3D          | helm3d_cslp_gmres_256cubed, helm3d_twolevel_256 |
+| 3D, contrast > 2.5                       | two-level FGMRES 3D    | helm3d_twolevel_256 |
 
 `choose_solver` is pure (inspect the plan without solving) and returns
 the JAX package's `method` and `kwargs` for every problem; `solve_auto`
@@ -38,10 +39,6 @@ CONTRAST_TWO_LEVEL = 1.45
 LEARNED_MAX_GRID = 512
 # the grid from which recycled two-level FGMRES is the plan
 RECYCLE_MIN_GRID = 4096
-
-NOT_PORTED_3D = ("3D solves (cslp3d, two_level3d) are not ported to the PyTorch "
-                 "package yet (ROADMAP Queue A item 7)")
-
 
 @dataclass
 class SolverPlan:
@@ -172,20 +169,20 @@ def solve_auto(
     """Solve (L + k^2) u = s with the plan's solver, on the card unless
     `device` says otherwise. Returns (result, plan): the chosen solver
     family's own result, and the plan. Keyword overrides are merged into
-    the plan's kwargs. source: [H, W, 2]; sos_map: [H, W]. 3D raises
-    NotImplementedError."""
+    the plan's kwargs. source: [H, W, 2] (or [D, H, W, 2]); sos_map:
+    [H, W] (or [D, H, W])."""
     plan = choose_solver(sos_map, cfg=cfg, params=params, tol=tol)
     kw = dict(plan.kwargs)
     kw.update(overrides)
     if verbose:
         print(f"solve_auto -> {plan.method}: {plan.rationale}", flush=True)
     shape = tuple(np.shape(sos_map))
-    if len(shape) == 3:
-        raise NotImplementedError(NOT_PORTED_3D)
     n = max(shape)
     dev = resolve_device(device)
     sos = _on(sos_map, dev, torch.float32)
     src = _on(source, dev, torch.float32)
+    if len(shape) == 3:
+        return _solve_auto3d(plan, kw, src, sos, cfg, op, dev), plan
     if op is None:
         from ..ops.spectral import make_operator, resolve_mode
 
@@ -245,3 +242,24 @@ def solve_auto(
     if internal_complex and res.wavefield.is_complex():
         res = res._replace(wavefield=torch.view_as_real(res.wavefield.reshape(shape)))
     return res, plan
+
+
+def _solve_auto3d(plan, kw, src, sos, cfg, op, dev):
+    """The 3D plans: CSLP-GMRES (at most 160 restart cycles unless the
+    caller says otherwise) or two-level FGMRES."""
+    g = cfg.geometry
+    if op is None:
+        from ..ops.spectral3d import make_operator3d
+
+        op = make_operator3d(*sos.shape, g.pml_size, g.sigma_max, cfg.k0, device=dev)
+    k_sq = (cfg.source.omega / sos) ** 2
+    if plan.method == "cslp3d":
+        from .helm3d import solve_helmholtz3d
+
+        kw.setdefault("max_restarts", 160)
+        return solve_helmholtz3d(op, k_sq, src, precond="shifted_laplace",
+                                 device=dev, **kw)
+    from .twolevel3d import solve_fgmres_two_level3d
+
+    return solve_fgmres_two_level3d(op, src, k_sq, k0=cfg.k0, pml_size=g.pml_size,
+                                    sigma_max=g.sigma_max, cfg=cfg, device=dev, **kw)

@@ -202,11 +202,12 @@ def _on(t, device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype)
 
 
-def _rhs(source, device, batched: bool) -> torch.Tensor:
-    """A channel pair [..., H, W, 2] or a real or complex [..., H, W]
-    source -> complex64. A real source still has a complex solution."""
+def _rhs(source, device, batched: bool, dims: int = 2) -> torch.Tensor:
+    """A channel pair [..., H, W, 2] (in 3D [..., D, H, W, 2]) or a real or
+    complex [..., H, W] source -> complex64. A real source still has a
+    complex solution."""
     s = _on(source, device)
-    if s.dim() == (4 if batched else 3) and s.shape[-1] == 2:
+    if s.dim() == dims + 1 + batched and s.shape[-1] == 2:
         s = s.to(torch.float32)
         return torch.complex(s[..., 0], s[..., 1])
     return s.to(torch.complex64)

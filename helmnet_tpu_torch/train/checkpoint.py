@@ -260,19 +260,22 @@ def latest_step(directory: str):
 
 def save_params_npz(path: str, params) -> None:
     """Flat-npz export of the port's params in the JAX package's leaf order
-    and layouts (HWIO convs, spatially flipped HWIO transposed convs): the
-    inverse of `weights.load_params_npz`, read by the JAX package's
-    `load_params_npz` as its own."""
+    and layouts (HWIO or DHWIO convs, spatially flipped HWIO or DHWIO
+    transposed convs): the inverse of `weights.load_params_npz` (and of
+    `load_params3d_npz`), read by the JAX package's loaders as their own."""
     from ..models.blocks import torch_conv_to_hwio, torch_convtranspose_to_hwio
+    from ..models.blocks3d import torch_conv3d_to_dhwio, torch_convtranspose3d_to_dhwio
     from ..models.hybridnet import iter_leaves
 
     def jax_layout(leaf_path: str, t: torch.Tensor) -> np.ndarray:
         a = t.detach().cpu().numpy().astype(np.float32)
-        if a.ndim != 4:
-            return a
-        if leaf_path.startswith("up["):
-            return torch_convtranspose_to_hwio(a)
-        return torch_conv_to_hwio(a)
+        transposed = leaf_path.startswith("up[")
+        if a.ndim == 4:
+            return torch_convtranspose_to_hwio(a) if transposed else torch_conv_to_hwio(a)
+        if a.ndim == 5:  # HybridNet3D
+            return (torch_convtranspose3d_to_dhwio(a) if transposed
+                    else torch_conv3d_to_dhwio(a))
+        return a
 
     np.savez_compressed(path, **{
         f"p{i}": jax_layout(p, t) for i, (p, t) in enumerate(iter_leaves(params))

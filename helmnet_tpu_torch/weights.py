@@ -16,6 +16,12 @@ PyTorch's OIHW and ConvTranspose2d layouts (models/blocks.py).
   `outc` and `up[i].{b, w}` — 88 leaves. A count or shape that does not
   match raises.
 
+The 3D model (models/hybridnet3d.py) keeps DHWIO and flipped DHWIO
+kernels in the JAX package and OIDHW and ConvTranspose3d's layout here;
+`from_jax_params3d(tree)` and `load_params3d_npz(path, cfg)` (the
+counterpart of `helmnet_tpu.train.loop3d.load_params3d_npz`: 69 leaves
+for the tpu3d_a and tpu3d_het models) convert them the same way.
+
 Orbax checkpoint directories (`checkpoints/`) need orbax, which imports
 JAX, and are not read here: `tools/export_orbax_npz.py` writes a run's
 params as such an npz (`trained_models/tpu_r2c_best.npz` is
@@ -25,12 +31,15 @@ params as such an npz (`trained_models/tpu_r2c_best.npz` is
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
 from .core.config import Config, ModelConfig
 from .core.device import resolve_device
 from .models.blocks import hwio_to_torch_conv, hwio_to_torch_convtranspose
+from .models.blocks3d import dhwio_to_torch_conv3d, dhwio_to_torch_convtranspose3d
 from .models.registry import get_architecture
 
 ORBAX_REFUSAL = (
@@ -51,11 +60,13 @@ def _template(cfg):
 
 def _to_port_layout(path: str, a) -> np.ndarray:
     a = np.array(a, dtype=np.float32)  # a writable copy
-    if a.ndim != 4:
-        return a
-    if path.startswith("up["):
-        return hwio_to_torch_convtranspose(a)
-    return hwio_to_torch_conv(a)
+    transposed = path.startswith("up[")
+    if a.ndim == 4:
+        return hwio_to_torch_convtranspose(a) if transposed else hwio_to_torch_conv(a)
+    if a.ndim == 5:
+        return (dhwio_to_torch_convtranspose3d(a) if transposed
+                else dhwio_to_torch_conv3d(a))
+    return a
 
 
 def leaf_paths(cfg) -> list[str]:
@@ -76,17 +87,39 @@ def from_jax_params(tree, device=None):
 
 def load_params_npz(path: str, cfg, device=None):
     """Read a flat `p0 ... pN` params npz into the port's parameters."""
-    dev = resolve_device(device)
     arch, template = _template(cfg)
-    leaves = dict(arch.iter_leaves(template))
+    return _load_npz(path, template, arch.iter_leaves, arch.map_leaves,
+                     _model_cfg(cfg).architecture, device)
+
+
+# JAX HybridNet3D params -> port params: the same conversion, whose 5-D
+# leaves are the 3D kernels
+from_jax_params3d = from_jax_params
+
+
+def load_params3d_npz(path: str, cfg, device=None):
+    """Read a HybridNet3D params npz (`p0 ... p68` for depth 3) into the
+    port's parameters; `cfg` is a Config or ModelConfig, its input
+    channels set to 7 as the JAX loader sets them."""
+    from .models import hybridnet3d
+    from .solvers.iterative3d import IN_CHANNELS_3D
+
+    model = dataclasses.replace(_model_cfg(cfg), in_channels=IN_CHANNELS_3D)
+    template = hybridnet3d.init_params(torch.Generator().manual_seed(0), model)
+    return _load_npz(path, template, hybridnet3d.iter_leaves,
+                     hybridnet3d.map_leaves, "HybridNet3D", device)
+
+
+def _load_npz(path, template, iter_leaves, map_leaves, name, device):
+    dev = resolve_device(device)
+    leaves = dict(iter_leaves(template))
     order = list(leaves)
     with np.load(path) as f:
         expected = {f"p{i}" for i in range(len(order))}
         if set(f.files) != expected:
             raise ValueError(
-                f"{path} holds {len(f.files)} arrays; the "
-                f"{_model_cfg(cfg).architecture} model has {len(order)} "
-                f"leaves p0..p{len(order) - 1}"
+                f"{path} holds {len(f.files)} arrays; the {name} model has "
+                f"{len(order)} leaves p0..p{len(order) - 1}"
             )
         values = {}
         for i, p in enumerate(order):
@@ -98,4 +131,4 @@ def load_params_npz(path: str, cfg, device=None):
                     f"expected {want}"
                 )
             values[p] = torch.as_tensor(a, device=dev)
-    return arch.map_leaves(template, lambda p, _: values[p])
+    return map_leaves(template, lambda p, _: values[p])

@@ -8,11 +8,13 @@ package's, on the CPU:
   when downsampling) and `spectral_resize_complex` at 1e-6 max|ref|, odd
   and even sizes, factors 2 and 4, up and down;
 - `solvers/auto.choose_solver`: JAX's `method` and `kwargs` on every case
-  of tests/test_solve_auto.py, 3D included, with the port's `solve_auto`
-  raising NotImplementedError for 3D;
+  of tests/test_solve_auto.py, 3D included;
 - `solve_auto` end to end at 32^2 (the CSLP plan) against JAX's: both
   below tests/test_solve_auto.py's 1e-3 and the same solution within
-  2e-3 max|u| (tests/test_gmres.py:35).
+  2e-3 max|u| (tests/test_gmres.py:35);
+- `solve_auto` in 3D at 16^3: the `cslp3d` plan (contrast 1) and the
+  `two_level3d` plan (a contrast-4 block) against JAX's, each reaching its
+  tolerance with the same solution within 2e-3 max|u|.
 """
 
 import jax
@@ -146,10 +148,6 @@ def test_choose_solver_matches_jax(name, make, ckpt):
     # a tensor gives the same plan as the array
     assert tauto.choose_solver(torch.from_numpy(sos), cfg=TConfig(),
                                params=params).kwargs == ref.kwargs
-    if sos.ndim == 3:
-        with pytest.raises(NotImplementedError, match="Queue A item 7"):
-            tauto.solve_auto(np.zeros(sos.shape + (2,), np.float32), sos,
-                             cfg=TConfig(), device="cpu")
 
 
 def test_solve_auto_cslp_end_to_end():
@@ -175,3 +173,33 @@ def test_solve_auto_cslp_end_to_end():
                                device="cpu")
     norms2 = res2.residual_norms.numpy()
     assert norms2[-1] / norms2[0] < 1e-3
+
+
+@pytest.mark.parametrize("plan_name", ["cslp3d", "two_level3d"])
+def test_solve_auto_3d_against_jax(plan_name):
+    n = 16
+    if plan_name == "cslp3d":
+        sos = _sos(n, 1.0, d3=True)
+    else:
+        sos = _sos(n, d3=True)
+        sos[4:12, 4:12, 4:12] = 4.0
+    src = np.zeros((n, n, n, 2), np.float32)
+    src[11, 8, 8, 0] = 10.0
+    geo = dict(domain_size=n, pml_size=4, sigma_max=2.0)
+    ref, jplan = jauto.solve_auto(src, sos, cfg=JConfig(geometry=JGeometry(**geo)),
+                                  tol=1e-5)
+    res, plan = tauto.solve_auto(src, sos, cfg=TConfig(geometry=TGeometry(**geo)),
+                                 tol=1e-5, device="cpu")
+    assert plan.method == jplan.method == plan_name
+    assert plan.kwargs == jplan.kwargs
+    norms = res.residual_norms.numpy()
+    field = res.x if plan_name == "cslp3d" else res.wavefield
+    ref_field = ref.x if plan_name == "cslp3d" else ref.wavefield
+    if plan_name == "cslp3d":  # absolute norms, 160 cycles (the plan's default)
+        assert norms.shape == (161,) and norms[-1] / norms[0] < 1e-5
+    else:  # relative norms
+        assert norms[-1] < 1e-5 and len(norms) == len(np.asarray(ref.residual_norms))
+    assert tuple(field.shape) == (n, n, n, 2)
+    want = as_complex(ref_field)
+    np.testing.assert_allclose(as_complex(field.numpy()), want,
+                               atol=2e-3 * np.abs(want).max())

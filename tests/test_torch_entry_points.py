@@ -25,14 +25,8 @@ from helmnet_tpu.train.checkpoint import save_params_npz
 from helmnet_tpu_torch.core import profiling as tprof
 from tests.torch_solver_cases import R2C_NPZ, one_torch_thread  # noqa: F401
 
-# JAX public names the port does not have yet: 3D, the mesh, sanitize
-NOT_PORTED = {
-    "hybridnet3d", "SpectralPML3D", "laplacian3d", "helmholtz_residual3d",
-    "make_operator3d", "point_source_map3d", "solve_helmholtz3d",
-    "solve_helmholtz3d_batch", "solve_fgmres_two_level3d", "IterativeSolver3D",
-    "rollout3d", "solve_cw3d", "solve_cw3d_chunked", "make_mesh",
-    "checked", "check_finite", "debug_nans",
-}
+# JAX public names the port does not have yet: the mesh, sanitize
+NOT_PORTED = {"make_mesh", "checked", "check_finite", "debug_nans"}
 
 
 def _quiet(fn, *args):

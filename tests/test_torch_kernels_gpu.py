@@ -628,3 +628,72 @@ def test_k1_inside_a_served_batch(cuda):
     cpu = IterativeSolver(cfg, params=params_to(params, "cpu"), device="cpu").forward(
         sos, num_iterations=4)
     np.testing.assert_allclose(out["rmse"][:4], cpu["rmse"][:, 0].numpy(), rtol=0.05)
+
+
+# -- the 3D path: no hand kernel, cuDNN convs and the einsum/FFT operator -------
+
+
+def _counts():
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
+
+    return (sr.residual_planes.launches, sr.residual_planes_tiled.launches,
+            sr.residual_planes_mxu.launches, fused_double_conv.launches,
+            packed_double_conv.launches)
+
+
+@pytest.mark.parametrize("n", [48, 64])
+def test_3d_operator_modes(cuda, n):
+    """chip_smoke.py 14a: both modes on the card within 2e-5 max|ref| of
+    each other and of the CPU path (tests/test_spectral3d.py:39)."""
+    from helmnet_tpu_torch.ops.spectral3d import helmholtz_residual3d, make_operator3d
+
+    rng = np.random.default_rng(n)
+    u, s = (rng.standard_normal((2, n, n, n, 2)).astype(np.float32) for _ in range(2))
+    k_sq = (1.0 + rng.random((2, n, n, n))).astype(np.float32)
+    op = make_operator3d(n, n, n, 8, 2.0, 1.0, device=cuda)
+    on = lambda a: torch.tensor(a, device=cuda)
+    mm = helmholtz_residual3d(op, on(u), on(k_sq), on(s), "matmul").cpu().numpy()
+    ff = helmholtz_residual3d(op, on(u), on(k_sq), on(s), "fft").cpu().numpy()
+    cpu = helmholtz_residual3d(op.to("cpu"), *map(torch.tensor, (u, k_sq, s)))
+    atol = 2e-5 * np.abs(mm).max()
+    np.testing.assert_allclose(ff, mm, atol=atol)
+    np.testing.assert_allclose(mm, cpu.numpy(), atol=atol)
+
+
+def test_3d_rollout_gates(cuda):
+    """chip_smoke.py 14b at batch 2: tpu3d_a on two validation volumes,
+    400 steps with the fixed source: no hand-kernel launch, finite rmse,
+    the median reduction (source rms over best rmse) at least 100x, and the
+    first 4 rmse within rtol 1e-3 of the CPU path."""
+    import dataclasses
+
+    from helmnet_tpu_torch.core.config import Config
+    from helmnet_tpu_torch.models.hybridnet import params_to
+    from helmnet_tpu_torch.ops.spectral3d import point_source_map3d
+    from helmnet_tpu_torch.solvers.iterative3d import IterativeSolver3D
+
+    n = 48
+    cfg = Config()
+    cfg = cfg.replace(
+        geometry=dataclasses.replace(cfg.geometry, domain_size=n),
+        model=dataclasses.replace(cfg.model, depth=3, state_depth=3, features=16,
+                                  in_channels=7))
+    solver = IterativeSolver3D.from_params_npz("trained_models/tpu3d_a_ep80.npz", cfg,
+                                               device=cuda)
+    with np.load("datasets/val3d/tpu3d_a_val.npz") as f:
+        sos = f["val"][:2]
+    src = np.stack([point_source_map3d(n, n, n, (41, 24, 24), 10.0)] * 2)
+    solver.set_source_maps(src)
+    before = _counts()
+    out = solver.forward(sos, num_iterations=400)
+    torch.cuda.synchronize()
+    assert _counts() == before
+    rmse = out["rmse"].cpu().numpy()
+    assert np.isfinite(rmse).all()
+    rms0 = np.sqrt(np.mean(src.astype(np.float64) ** 2, axis=(1, 2, 3, 4)))
+    assert np.median(rms0 / out["best_rmse"].cpu().numpy()) >= 100.0
+    cpu = IterativeSolver3D(cfg, params=params_to(solver.params, "cpu"), device="cpu")
+    cpu.set_source_maps(src)
+    np.testing.assert_allclose(rmse[:4], cpu.forward(sos, num_iterations=4)["rmse"].numpy(),
+                               rtol=1e-3)

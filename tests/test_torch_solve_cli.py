@@ -6,8 +6,13 @@
 - with the trained weights (the port's npz, JAX's orbax directory) both
   choose the learned plan, and the port's learned solve runs to its end
   at 96^2;
-- an orbax directory is refused with `cli/evaluate`'s message, a 3D map
-  raises NotImplementedError, and a source of the wrong shape SystemExit.
+- a 24^3 cube takes JAX's 3D plan (`cslp3d`) and the same solution
+  within 2e-3 max|u| when both read the source from `--source-npz` (JAX's
+  CLI cannot build its default 3D source: its `cli/solve.py:105` imports
+  a module that does not exist), and the port builds the default point
+  source itself;
+- an orbax directory is refused with `cli/evaluate`'s message, and a
+  source of the wrong shape raises SystemExit.
 """
 
 import numpy as np
@@ -86,11 +91,39 @@ def test_learned_solve_runs(tmp_path, capsys):
 def test_refusals(maps, tmp_path):
     with pytest.raises(SystemExit, match="tools/export_orbax_npz.py"):
         tsolve.main(["--sos", maps, "--checkpoint", str(tmp_path), "--platform", "cpu"])
-    cube = tmp_path / "cube.npz"
-    np.savez(cube, maps=np.ones((8, 8, 8), np.float32))
-    with pytest.raises(NotImplementedError, match="Queue A item 7"):
-        tsolve.main(["--sos", str(cube), "--platform", "cpu"])
     bad = tmp_path / "src.npz"
     np.savez(bad, src=np.zeros((16, 16, 2), np.float32))
     with pytest.raises(SystemExit, match="does not match"):
         tsolve.main(["--sos", maps, "--source-npz", str(bad), "--platform", "cpu"])
+
+
+def test_3d_cube_against_jax(tmp_path, capsys):
+    from helmnet_tpu_torch.ops.spectral3d import point_source_map3d
+
+    n = 24
+    rng = np.random.default_rng(1)
+    sos = np.ones((n, n, n), np.float32)
+    sos[8:16, 8:16, 8:16] += 0.5 * rng.random((8, 8, 8), np.float32)
+    cube = tmp_path / "cube.npz"
+    np.savez(cube, maps=sos)
+    # the CLI's default source: the 2D default scaled, mid-depth in x
+    src = point_source_map3d(n, n, n, (20, 12, 12), 10.0, 0.0, 1.0)
+    src_npz = tmp_path / "src.npz"
+    np.savez(src_npz, src=src)
+    args = ["--sos", str(cube), "--source-npz", str(src_npz)]
+    assert jsolve.main(args + ["--out", str(tmp_path / "jax.npz")]) == 0
+    jplan = _plan(capsys.readouterr().out)
+    assert tsolve.main(args + ["--platform", "cpu", "--out", str(tmp_path / "port.npz")]) == 0
+    assert _plan(capsys.readouterr().out) == jplan and jplan[0] == "cslp3d"
+    assert tsolve.main(["--sos", str(cube), "--platform", "cpu",
+                        "--out", str(tmp_path / "default.npz")]) == 0
+    out = capsys.readouterr().out
+    assert "cslp3d: rel residual" in out and "saved" in out
+    with np.load(tmp_path / "port.npz") as got, np.load(tmp_path / "jax.npz") as ref, \
+            np.load(tmp_path / "default.npz") as default:
+        assert str(got["method"]) == "cslp3d" and got["wavefield"].shape == (n, n, n, 2)
+        assert got["trajectory"][-1] / got["trajectory"][0] < 1e-4
+        want = as_complex(ref["wavefield"])
+        np.testing.assert_allclose(as_complex(got["wavefield"]), want,
+                                   atol=2e-3 * np.abs(want).max())
+        np.testing.assert_array_equal(default["wavefield"], got["wavefield"])

@@ -6,14 +6,15 @@
 Drives the learned 2D solve at 96^2 x batch 32 x 500 iterations through
 `IterativeSolver.forward` with the fused DoubleConv kernel K1, the
 channel-packed solve at 256^2 x 16 x 50 through `rollout_packed` with the
-packed fused DoubleConv kernel K3, the FD-stencil residual kernels K2a-c
+packed fused DoubleConv kernel K3 (and at 256^2 x 32 x 50, g = 32, with
+K3's wide instances), the FD-stencil residual kernels K2a-c
 at bench.py's 512^2 x 8, batched GMRES on the stencil operator at
 256^2 x 16, unsupervised replay-buffer training at 96^2 x 32 with 10 unrolled
 steps, and the classical solvers (learned-preconditioned FGMRES,
 two-level, deflated GMRES, hybrid, `solve_auto`, `cli/solve`) with the
 tpu_r2c weights, serving (`SolverService`, `cli/serve`) with the
-remaining 2D entry points, and the 3D solvers with the tpu3d_a and
-tpu3d_het weights, and checks them all:
+remaining 2D entry points, the 3D solvers with the tpu3d_a and tpu3d_het
+weights, and the distribution modules on NCCL, and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -43,7 +44,10 @@ tpu3d_het weights, and checks them all:
    step at 256^2, g = 16 (the trained weights packed by `pack_params`,
    seeded random inputs), within atol 2e-2 * max|ref|, each with its tile,
    beside its plain version, the cuDNN f32 DoubleConv and its bound, with
-   its TFLOP/s, share of the bound and time at the other tile;
+   its TFLOP/s, share of the bound and time at the other tile; 6b: the
+   same at the 14 calls of a g = 32 and a g = 64 step at 256^2 (mid and
+   out widths 256 and 512: K3's wide instances, and the 128-wide ones at
+   the state convs), each call timed in a graph of 10;
 7. the packed path: `rollout_packed` on the 16 maps of
    datasets/eval256/maps.npz, g = 16, 50 iterations (bench.py:234) in
    'pallas' mode. Exactly 14 x 50 K3 launches and no K1 launch, finite
@@ -51,7 +55,12 @@ tpu3d_het weights, and checks them all:
    rollout and the best rmse within a factor 1.5 of its best, packed
    'xla' against unpacked 'xla' within rtol 1e-3 on the first 10 rmse,
    and the card against the port's CPU path (16 maps at 96^2, 4
-   iterations) within rtol 0.05;
+   iterations) within rtol 0.05; 7b (run after phase 8): the same at
+   g = 32 on 32 maps (those 16 and 16 of `make_dataset(16, 256, seed=0)`),
+   50 iterations: exactly 14 x 50 K3 launches and no other hand-kernel
+   launch, the first 4 rmse within rtol 0.05 of the unpacked cuDNN-f32
+   rollout and the best within a factor 1.5, its wall and gridpoints/s,
+   and a profile of 5 steps (device time, busy share, K3's share);
 8. throughput at 256^2 x 16 x 50 of packed 'pallas' (K3), packed 'xla'
    (cuDNN), unpacked 'pallas' (K1) and unpacked 'xla', in turns within
    this run, and torch.profiler over 10 packed 'pallas' steps;
@@ -200,7 +209,19 @@ tpu3d_het weights, and checks them all:
    against off at 8 x 3 unrolled (rtol 1e-5, cuDNN deterministic), one
    epoch of 12 steps finite with every leaf moved, the step's wall
    (median of 5 after the first), a profiled step and the peak memory
-   with remat at 10 unrolled and without at 3.
+   with remat at 10 unrolled and without at 3;
+15. distribution (`distribution_phase`) on an NCCL process group of world
+   size 1 (their multi-rank behaviour is held against the JAX package on
+   gloo ranks by tests/test_torch_distributed.py): (a) the halo-exchanged
+   stencil residual (8 x 256^2, order 4) and its norm, (b) the slab-FFT
+   residual, (c) the z-slab 3D residual (2 x 48^3) in all three methods,
+   each timed, and its norm, each against the unsharded function within
+   1e-5 (norms 1e-6) of max|ref| (tests/test_stencil_distributed.py:81,
+   89, tests/test_slab3d.py:52); (d) `put_global` / `fetch_global` round
+   trips, equal; (e) a data=1 mesh `Trainer` against the plain one over an
+   epoch of 3 steps (experiments/base.json, batch 32, 96 maps) under
+   cuDNN's deterministic algorithms: loss, every param and the written-back
+   wavefields within 1e-6 of max|ref|; no hand-kernel launch.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -235,6 +256,14 @@ BATCH, GRID, ITERS = 32, 96, 500
 PROFILE_STEPS = 50
 PACK_G, PACK_GRID, PACK_ITERS = 16, 256, 50  # bench.py:234 grid_256_packed
 PACK_PROFILE_STEPS = 10
+WIDE_STEPS = (32, 64)  # 6b: K3's wide instances at the packed step of each g
+WIDE_ITERS = 10  # 6b: calls a CUDA graph holds, per time
+WIDE_G, WIDE_MAPS, WIDE_PROFILE_STEPS = 32, 32, 5  # 7b: rollout_packed at g = 32
+DIST_GRID, DIST_GRID3D = 256, 48  # 15a-c
+DIST_RTOL = 1e-5  # 15a-c: * max|ref|; test_stencil_distributed.py:81, test_slab3d.py:52
+DIST_NORM_RTOL = 1e-6  # 15a, 15c: test_stencil_distributed.py:89
+DIST_TRAIN_MAPS = 96  # 15e: 3 steps of 32 (experiments/base.json's batch)
+DIST_TRAIN_RTOL = 1e-6  # 15e: * max|ref|, data=1 mesh against the plain Trainer
 SPMV_N, SPMV_B, SPMV_APPLIES = 512, 8, 100  # bench.py:259 stencil_spmv_512
 K2_ATOL = {"K2a": 1e-5, "K2b": 1e-5, "K2c": 2e-4}  # test_pallas_stencil.py:35,90,116
 GMRES_RESTART, GMRES_CYCLES = 20, 10
@@ -432,11 +461,13 @@ def ptxas_table(log: str) -> list[dict]:
 
     rows, cur = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(packed_double_conv|double_conv"
-                      r"|stencil_residual)_kernelI((?:Li\d+E)+)E", line)
+        m = re.search(r"Compiling entry function '\S*?(packed_double_conv|wide_double_conv"
+                      r"|double_conv|stencil_residual)_kernelI((?:Li\d+E)+)E", line)
         if m:
-            cur = {"kernel": {"packed_double_conv": "K3", "double_conv": "K1",
+            cur = {"kernel": {"packed_double_conv": "K3", "wide_double_conv": "K3",
+                              "double_conv": "K1",
                               "stencil_residual": "K2"}[m.group(1)],
+                   "wide": m.group(1) == "wide_double_conv",
                    "args": [int(a) for a in re.findall(r"Li(\d+)E", m.group(2))],
                    "spill_stores": 0, "spill_loads": 0, "smem": 0}
             continue
@@ -561,6 +592,17 @@ def stencil_csr(op, k_sq: torch.Tensor) -> torch.Tensor:
         torch.from_numpy(m.indices.astype(np.int32)),
         torch.from_numpy(m.data.astype(np.complex64)),
         size=m.shape, check_invariants=True).to(k_sq.device)
+
+
+def hand_kernel_counts() -> tuple:
+    """(K2a, K2b, K2c, K1, K3) launches since the last `reset_counts()`."""
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.double_conv import fused_double_conv
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
+
+    return (sr.residual_planes.launches, sr.residual_planes_tiled.launches,
+            sr.residual_planes_mxu.launches, fused_double_conv.launches,
+            packed_double_conv.launches)
 
 
 def reset_counts() -> None:
@@ -2045,6 +2087,286 @@ def solvers3d_phase(dev, hand_kernels) -> dict:
     log(f"phase 14 done in {out['seconds']:.1f} s")
     return out
 
+def k3_calls(tag: str, kparams, model, n: int, gen, dev, iters: int = 50) -> list:
+    """K3 against its plain version at the 14 calls of one packed step
+    (batch 1 at n^2, seeded random inputs, the weights `prepare_k3` made),
+    within atol 2e-2 * max|ref|; then each call timed (a CUDA graph of
+    `iters` calls) at its tile and at the instance's other tile, beside its
+    plain version, the cuDNN f32 DoubleConv and its bound."""
+    from helmnet_tpu_torch.models.blocks import conv2d, double_conv
+    from helmnet_tpu_torch.ops.double_conv import double_conv_plain
+    from helmnet_tpu_torch.ops.packed_double_conv import (packed_double_conv, tile_for,
+                                                          tiles_for)
+
+    rows = []
+    for name, pw, n_, cins in packed_step_calls(kparams, model, n):
+        parts = tuple(torch.randn((1, n_, n_, c), generator=gen, device=dev)
+                      for c in cins)
+        ref = double_conv_plain(pw.params, parts)
+        got = packed_double_conv(pw, parts)
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
+        log(f"phase {tag} {name:20s} {'+'.join(map(str, cins)):>13s} -> {pw.cm} -> "
+            f"{got.shape[-1]} @{n_}^2: max|err| {err:.3e} (atol "
+            f"{KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K3 disagrees with its plain version at {name} (phase {tag})")
+        fp = pw.params
+        lib_p = dict(fp, c1={"w": torch.cat(fp["c1"]["w"], dim=1), "b": fp["c1"]["b"]})
+
+        def library(p=lib_p, parts=parts):
+            y = double_conv(p, torch.cat(parts, dim=-1), model.activation_function,
+                            "highest")
+            return conv2d(p["post"], y) if "post" in p else y
+
+        kernel_ms = cuda_ms(lambda: packed_double_conv(pw, parts), iters)
+        tile = tile_for(1, n_, n_, pw.cmp, pw.cop, pw.ce)
+        alts = [t for t in tiles_for(pw.cmp, pw.cop, pw.ce) if t != tile]
+        alt = alts[0] if alts else None  # the tile not chosen
+        alt_ms = (cuda_ms(lambda: packed_double_conv(pw, parts, tile=alt), iters)
+                  if alt else None)
+        plain_ms = cuda_ms(lambda: double_conv_plain(fp, parts), iters)
+        library_ms = cuda_ms(library, iters)
+        flops, ops_ms, bytes_ms, cuda_core_ms = packed_bound(pw, parts, got)
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        rows.append(dict(
+            name=name, grid=n_, cins=list(cins), cmid=pw.cm, cout=int(got.shape[-1]),
+            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
+            bound_ms=bound_ms, bound_by=bound_by, ops_ms=ops_ms, bytes_ms=bytes_ms,
+            cuda_core_ms=cuda_core_ms, max_abs_err=err, gflops=flops / 1e9,
+            tflops=flops / kernel_ms / 1e9, tile=list(tile), wide=pw.wide,
+            bound_share=bound_ms / kernel_ms, alt_tile=list(alt) if alt else None,
+            alt_ms=alt_ms))
+        log(f"phase {tag} {name:20s} tile {tile[0]}x{tile[1]}: K3 {kernel_ms:.4f} ms "
+            f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {bound_ms / kernel_ms:.3f} of "
+            f"its bound), plain {plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core {cuda_core_ms:.4f} ms"
+            + (f"; at tile {alt[0]}x{alt[1]} {alt_ms:.4f} ms" if alt else ""))
+        del parts, ref, got
+    total = lambda k: sum(r[k] for r in rows)
+    log(f"phase {tag} a packed step at {n}^2 ({len(rows)} calls): K3 {total('ms'):.4f} "
+        f"ms, plain {total('plain_ms'):.4f} ms, cuDNN {total('library_ms'):.4f} ms, "
+        f"bound {total('bound_ms'):.4f} ms, {total('gflops'):.1f} GFLOP")
+    return rows
+
+
+def k3_step(rows: list) -> dict:
+    """A packed step's K3 numbers: the sums over its calls."""
+    total = lambda k: sum(r[k] for r in rows)
+    return {
+        "ms": total("ms"), "plain_ms": total("plain_ms"),
+        "bound_ms": total("bound_ms"),
+        "bound_by": "operations" if total("ops_ms") >= total("bytes_ms") else "bytes",
+        "library_ms": total("library_ms"), "gflops": total("gflops"),
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "tiles": {r["name"]: "x".join(map(str, r["tile"])) for r in rows},
+    }
+
+
+def wide_packed_phase(dev, cfg_kernel, cfg_cudnn, params, hand_kernels) -> dict:
+    """Phase 7b: `rollout_packed` at g = WIDE_G on WIDE_MAPS maps at 256^2
+    (the 16 of datasets/eval256 and as many from `make_dataset(seed=0)`),
+    PACK_ITERS iterations in 'pallas' mode: exactly 14 x PACK_ITERS K3
+    launches (the wide instances) and no other hand-kernel launch, finite
+    rmse, the first 4 within rtol 0.05 of the unpacked cuDNN-f32 rollout
+    and the best within a factor 1.5; then its wall and a profile."""
+    from helmnet_tpu_torch.data.ellipses import load_maps, make_dataset
+    from helmnet_tpu_torch.models.packed import rollout_packed
+    from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
+
+    t0 = time.perf_counter()
+    g, n, iters = WIDE_G, PACK_GRID, PACK_ITERS
+    half = load_maps("datasets/eval256/maps.npz")
+    maps = np.concatenate([half, make_dataset(WIDE_MAPS - len(half), n, seed=0)])
+    geometry = dataclasses.replace(cfg_kernel.geometry, domain_size=n)
+    cfg_pack = cfg_kernel.replace(geometry=geometry)
+    cfg_xla = cfg_cudnn.replace(geometry=geometry)
+    solver = IterativeSolver(cfg_pack, params=params, device=dev)
+    src = solver.source.expand(len(maps), -1, -1, -1)
+
+    def packed_run(steps, collect=("rmse",)):
+        return rollout_packed(params, solver.op, src, maps, cfg=cfg_pack, g=g,
+                              num_iterations=steps, collect=collect, device=dev)
+
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    pk = packed_run(iters, ("rmse", "best"))
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    k2a, k2b, k2c, k1, k3 = hand_kernels()
+    rmse, best = pk["rmse"].cpu().numpy(), pk["best_rmse"].cpu().numpy()
+    log(f"phase 7b rollout_packed g={g}: {iters} iterations of {len(maps)} x {n}^2 in "
+        f"{first_s:.2f} s; {k3} K3 launches, {k1} K1, {k2a + k2b + k2c} K2; mean rmse "
+        f"{rmse[0].mean():.4e} -> {rmse[-1].mean():.4e}, best {best.mean():.4e}")
+    if k3 != 14 * iters or k1 or k2a or k2b or k2c:
+        fail(f"{k3} K3 and {k1 + k2a + k2b + k2c} other launches, expected "
+             f"14 x {iters} and 0")
+    if rmse.shape != (iters, len(maps)) or not np.all(np.isfinite(rmse)):
+        fail("the g=32 packed rmse is not finite or has the wrong shape")
+    f32 = rollout(params, solver.op, src, maps, cfg=cfg_xla, num_iterations=iters,
+                  collect=("rmse", "best"), device=dev)
+    f32_rmse, f32_best = f32["rmse"].cpu().numpy(), f32["best_rmse"].cpu().numpy()
+    early = np.abs(rmse[:4] - f32_rmse[:4]) / np.abs(f32_rmse[:4])
+    best_ratio = np.maximum(best / f32_best, f32_best / best)
+    log(f"phase 7b against unpacked cuDNN f32: first 4 rmse max rel diff "
+        f"{early.max():.3e} (rtol {EARLY_RTOL}); best rmse ratio max "
+        f"{best_ratio.max():.3f} (limit {LATE_FACTOR})")
+    if early.max() > EARLY_RTOL or best_ratio.max() > LATE_FACTOR:
+        fail("the g=32 packed K3 path disagrees with the unpacked cuDNN path")
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    packed_run(iters)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t
+    prof = profile_steps(packed_run, WIDE_PROFILE_STEPS)
+    k3_ms = sum(v for k, v in prof["device_ms_by_name"].items()
+                if "packed_double_conv" in k or "wide_double_conv" in k)
+    log(f"phase 7b {len(maps)} x {n}^2 x {iters} at g={g}: {wall_s:.3f} s, "
+        f"{len(maps) * n * n * iters / wall_s:.4e} gridpoints/s; profile of "
+        f"{WIDE_PROFILE_STEPS} steps: wall {prof['wall_ms_per_step']:.4f} ms/step, "
+        f"device {prof['device_ms_per_step']:.4f} ms/step, busy share "
+        f"{prof['busy_share']:.4f}, K3 {k3_ms:.4f} ms/step")
+    for k in prof["top"][:8]:
+        print(f"    {k['device_ms_per_step']:.5f} ms/step "
+              f"{k['calls_per_step']:5.1f} calls/step  {k['name']}", flush=True)
+    return {"k3_launches": k3, "first_s": first_s, "wall_s": wall_s,
+            "gridpoints_per_s": len(maps) * n * n * iters / wall_s,
+            "rmse": rmse.tolist(), "best_rmse": best.tolist(),
+            "f32_rmse": f32_rmse.tolist(), "early_rel_diff": float(early.max()),
+            "best_ratio": float(best_ratio.max()), "profile": prof,
+            "k3_ms_per_step": k3_ms, "seconds": time.perf_counter() - t0}
+
+
+def distribution_phase(dev, cfg, params, hand_kernels) -> dict:
+    """Phase 15: the distribution modules on NCCL at world size 1 (one card;
+    their multi-rank behaviour is held against the JAX package on gloo
+    ranks by tests/test_torch_distributed.py): (a) the halo-exchanged
+    stencil residual and its norm, (b) the slab-FFT residual, (c) the
+    z-slab 3D residual in all three methods and its norm, each against the
+    unsharded function; (d) `put_global` / `fetch_global` round trips;
+    (e) a data=1 mesh `Trainer` against the plain one over one epoch of 3
+    steps under cuDNN's deterministic algorithms. No hand kernel runs."""
+    import socket
+
+    import torch.distributed as dist
+
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import (Sharding, data_sharding, make_mesh,
+                                               make_mesh3d, spatial_sharding)
+    from helmnet_tpu_torch.data.ellipses import load_maps
+    from helmnet_tpu_torch.distributed import dfft, halo, multihost, slab3d
+    from helmnet_tpu_torch.ops.spectral import helmholtz_residual, make_operator
+    from helmnet_tpu_torch.ops.spectral3d import helmholtz_residual3d, make_operator3d
+    from helmnet_tpu_torch.ops.stencil import (helmholtz_residual_stencil,
+                                               make_stencil_operator)
+    from helmnet_tpu_torch.train.loop import Trainer
+
+    t0 = time.perf_counter()
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, device=dev)
+    out = {"backend": dist.get_backend()}
+    try:
+        if out["backend"] != "nccl":
+            fail(f"the process group runs on {out['backend']}, not NCCL")
+        reset_counts()
+        gen = torch.Generator(device=dev).manual_seed(15)
+        rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+        errs = {}
+
+        def check(name, got, ref, rtol=DIST_RTOL):
+            err = (got - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+            errs[name] = err
+            log(f"phase 15 {name}: max|err| / max|ref| {err:.3e} (limit {rtol})")
+            if not err <= rtol:
+                fail(f"{name} on NCCL disagrees with the unsharded function")
+
+        n = DIST_GRID
+        mesh = make_mesh(ParallelConfig(), device=dev)
+        u, k_sq, s = rnd(8, n, n, 2), 0.5 + rnd(8, n, n).abs(), rnd(8, n, n, 2)
+        st = make_stencil_operator(n, n, 8, 2.0, 1.0, order=4, device=dev)
+        r = halo.make_sharded_stencil_residual(mesh, st)(*halo.spatial_put(mesh, (u, k_sq, s)))
+        ref = helmholtz_residual_stencil(st, u, k_sq, s)
+        check(f"15a halo stencil residual 8 x {n}^2", r, ref)
+        check("15a its norm", halo.make_sharded_residual_norm(mesh)(r),
+              torch.sqrt(torch.mean(ref**2, dim=(1, 2, 3))), DIST_NORM_RTOL)
+        op = make_operator(n, n, 8, 2.0, 1.0, device=dev)
+        rows = Sharding(mesh, ("data", "y"))
+        r = dfft.make_sharded_residual_fft(mesh, op)(
+            *(multihost.put_global(t, rows) for t in (u, k_sq, s)))
+        check(f"15b slab-FFT residual 8 x {n}^2", r, helmholtz_residual(op, u, k_sq, s, "fft"))
+        n3 = DIST_GRID3D
+        mesh3 = make_mesh3d(device=dev)
+        op3 = make_operator3d(n3, n3, n3, 8, 2.0, 1.0, device=dev)
+        u3, k3, s3 = rnd(2, n3, n3, n3, 2), 0.5 + rnd(2, n3, n3, n3).abs(), rnd(2, n3, n3, n3, 2)
+        ref3 = helmholtz_residual3d(op3, u3, k3, s3, "matmul")
+        args3 = slab3d.slab_put(mesh3, (u3, k3, s3))
+        times = {}
+        for method in ("transpose", "scatter", "overlap"):
+            fn = slab3d.make_sharded_residual3d(mesh3, op3, method=method)
+            check(f"15c z-slab residual '{method}' 2 x {n3}^3", fn(*args3), ref3)
+            times[method] = cuda_ms(lambda fn=fn: fn(*args3), 20, graph=False)
+        times["unsharded"] = cuda_ms(lambda: helmholtz_residual3d(op3, u3, k3, s3, "matmul"),
+                                     20, graph=False)
+        log(f"phase 15c device ms a 2 x {n3}^3 residual: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in times.items()))
+        check("15c its norm", slab3d.make_sharded_residual_norm3d(mesh3)(ref3),
+              torch.sqrt(torch.mean(ref3**2, dim=(1, 2, 3, 4))), DIST_NORM_RTOL)
+        host = np.random.default_rng(15).standard_normal((8, 64, 64, 2)).astype(np.float32)
+        for sh in (data_sharding(mesh), spatial_sharding(mesh), rows):
+            back = multihost.fetch_global(multihost.put_global(host, sh), sh)
+            if not np.array_equal(back, host):
+                fail(f"put_global / fetch_global changed the array ({sh.spec})")
+        log("phase 15d put_global / fetch_global round trips: equal")
+        out.update(errors=errs, slab3d_ms=times)
+        # (e) a data=1 mesh Trainer against the plain one
+        cfg_t = cfg.replace(training=dataclasses.replace(
+            cfg.training, buffer_size=DIST_TRAIN_MAPS))
+        maps = load_maps(cfg.medium.train_set)[:DIST_TRAIN_MAPS]
+        runs = {}
+        with deterministic_cudnn():
+            for kind, kw in (("plain", {}), ("mesh data=1", {"mesh": mesh})):
+                tr = Trainer(cfg_t, params=params, device=dev, **kw)
+                tr.fill_buffer(maps)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                stats = tr.training_epoch(maps)
+                torch.cuda.synchronize()
+                runs[kind] = (tr, stats, time.perf_counter() - t)
+        (ta, sa, wa), (tb, sb, wb) = runs.values()
+        loss_diff = abs(sb["train_loss_mean"] - sa["train_loss_mean"]) / abs(sa["train_loss_mean"])
+        from helmnet_tpu_torch.models.hybridnet import iter_leaves
+
+        leaf_diff = max(
+            ((a - b).abs().max() / a.abs().max().clamp_min(1e-30)).item()
+            for (_, a), (_, b) in zip(iter_leaves(ta.params), iter_leaves(tb.params)))
+        wf_diff = np.abs(ta.buffer.wavefield - tb.buffer.wavefield).max() / max(
+            np.abs(ta.buffer.wavefield).max(), 1e-30)
+        steps = sa["global_step"]
+        log(f"phase 15e Trainer mesh data=1 against the plain Trainer, {steps} steps "
+            f"(batch {cfg.training.train_batch_size} x {cfg.geometry.domain_size}^2, "
+            f"cuDNN deterministic): loss rel diff {loss_diff:.3e}, params "
+            f"{leaf_diff:.3e}, written-back wavefields {wf_diff:.3e} (limit "
+            f"{DIST_TRAIN_RTOL}); epoch wall {wa:.3f} / {wb:.3f} s")
+        if steps != 3 or max(loss_diff, leaf_diff, wf_diff) > DIST_TRAIN_RTOL:
+            fail("the data=1 mesh Trainer disagrees with the plain one")
+        out.update(train_loss_rel_diff=loss_diff, train_param_rel_diff=leaf_diff,
+                   train_wavefield_rel_diff=float(wf_diff), epoch_s={"plain": wa, "mesh": wb})
+        launched = hand_kernels()
+        if any(launched):
+            fail(f"hand kernels launched on the distribution path: {launched}")
+    finally:
+        dist.destroy_process_group()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 15 done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -2065,7 +2387,6 @@ def main() -> int:
                                                    prepare, tile_for)
     from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
     from helmnet_tpu_torch.ops.packed_double_conv import TILES as K3_TILES
-    from helmnet_tpu_torch.ops.packed_double_conv import tile_for as k3_tile_for
     from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
     from helmnet_tpu_torch.weights import load_params_npz
 
@@ -2088,12 +2409,15 @@ def main() -> int:
         f"output: `build_log` of --out)")
     lib = _build.load_library()
     # K1: <TH, TW, warps, CS, CMP, COP>; K3: <TH, TW, CMP, COP, stages>,
-    # whose shared memory is dynamic (hn_packed_double_conv_smem); K2:
-    # <radius, instance> (0 scalar, 1 planes, 2 pairs)
+    # the wide K3: <TH, TW, stages, largest head>, whose shared memory is
+    # dynamic (hn_packed_double_conv_smem; the wide ones' at their widest
+    # mid tile); K2: <radius, instance> (0 scalar, 1 planes, 2 pairs)
     resources = ptxas_table(built.log)
     for r in resources:
         if r["kernel"] == "K3":
-            th, tw, cmp_, cop_ = r["args"][:4]
+            th, tw = r["args"][:2]
+            cmp_, cop_ = ((512 if th == 4 else 256,) * 2 if r["wide"]
+                          else r["args"][2:4])
             r["smem"] = lib.hn_packed_double_conv_smem(K3_TILES.index((th, tw)),
                                                        cmp_, cop_)
         log(f"phase 2 {r['kernel']} <{', '.join(map(str, r['args']))}>: "
@@ -2245,51 +2569,14 @@ def main() -> int:
     # -- 6. K3 against its plain version, and its times --------------------
     g, n_pack = PACK_G, PACK_GRID
     kparams = prepare_k3(pack_params(params, g), model, g, inc_splits=(2, 2, 2))
-    k3_rows = []
-    for name, pw, n, cins in packed_step_calls(kparams, model, n_pack):
-        parts = tuple(torch.randn((1, n, n, c), generator=gen, device=dev)
-                      for c in cins)
-        ref = double_conv_plain(pw.params, parts)
-        got = packed_double_conv(pw, parts)
-        torch.cuda.synchronize()
-        err = (got - ref).abs().max().item()
-        scale = ref.abs().max().item()
-        ok = bool(torch.isfinite(got).all()) and err <= KERNEL_RTOL * scale
-        log(f"phase 6 {name:20s} {'+'.join(map(str, cins)):>11s} -> {pw.cm} -> "
-            f"{got.shape[-1]} @{n}^2: max|err| {err:.3e} (atol "
-            f"{KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"K3 disagrees with its plain version at {name}")
-        fp = pw.params
-        lib_p = dict(fp, c1={"w": torch.cat(fp["c1"]["w"], dim=1), "b": fp["c1"]["b"]})
-
-        def library(p=lib_p, parts=parts):
-            y = double_conv(p, torch.cat(parts, dim=-1), model.activation_function,
-                            "highest")
-            return conv2d(p["post"], y) if "post" in p else y
-
-        kernel_ms = cuda_ms(lambda: packed_double_conv(pw, parts))
-        tile = k3_tile_for(1, n, n)
-        alt = K3_TILES[1 - K3_TILES.index(tile)]  # the tile not chosen
-        alt_ms = cuda_ms(lambda: packed_double_conv(pw, parts, tile=alt))
-        plain_ms = cuda_ms(lambda: double_conv_plain(fp, parts))
-        library_ms = cuda_ms(library)
-        flops, ops_ms, bytes_ms, cuda_core_ms = packed_bound(pw, parts, got)
-        bound_ms = max(ops_ms, bytes_ms)
-        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-        k3_rows.append(dict(
-            name=name, grid=n, cins=list(cins), cmid=pw.cm, cout=int(got.shape[-1]),
-            ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-            bound_ms=bound_ms, bound_by=bound_by, ops_ms=ops_ms, bytes_ms=bytes_ms,
-            cuda_core_ms=cuda_core_ms, max_abs_err=err, gflops=flops / 1e9,
-            tflops=flops / kernel_ms / 1e9, tile=list(tile),
-            bound_share=bound_ms / kernel_ms, alt_tile=list(alt), alt_ms=alt_ms))
-        log(f"phase 6 {name:20s} tile {tile[0]}x{tile[1]}: K3 {kernel_ms:.4f} ms "
-            f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {bound_ms / kernel_ms:.3f} of "
-            f"its bound), plain {plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core {cuda_core_ms:.4f} ms; "
-            f"at tile {alt[0]}x{alt[1]} {alt_ms:.4f} ms")
-        del parts, ref, got
+    k3_rows = k3_calls("6", kparams, model, n_pack, gen, dev)
+    # 6b: the wide instances at the 14 calls of a g = 32 and a g = 64 step
+    k3_wide = {}
+    for gw in WIDE_STEPS:
+        kw_params = prepare_k3(pack_params(params, gw), model, gw, inc_splits=(2, 2, 2))
+        k3_wide[gw] = k3_calls(f"6b g={gw}", kw_params, model, n_pack, gen, dev,
+                               WIDE_ITERS)
+        del kw_params
 
     # -- 7. the packed path ----------------------------------------------------
     maps = load_maps("datasets/eval256/maps.npz")
@@ -2394,6 +2681,10 @@ def main() -> int:
         print(f"    {k['device_ms_per_step']:.5f} ms/step "
               f"{k['calls_per_step']:5.1f} calls/step  {k['name']}", flush=True)
 
+
+    # -- 7b. the packed path at g = 32: the wide K3 instances --------------
+    wide_packed = wide_packed_phase(dev, cfg_kernel, cfg_cudnn, params,
+                                    hand_kernel_counts)
 
     # -- 9. K2 at bench.py's stencil_spmv_512 shape ------------------------
     from helmnet_tpu_torch.ops import stencil_residual as sr
@@ -2716,6 +3007,9 @@ def main() -> int:
     paths3d = solvers3d["launches"]  # every 3D path's counts, each from 0
     by_path3d = lambda i: {path: c[i] for path, c in paths3d.items()}
 
+    # -- 15. distribution on NCCL at world size 1 --------------------------
+    distribution = distribution_phase(dev, cfg, params, hand_kernel_counts)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -2759,7 +3053,15 @@ def main() -> int:
                      else "bytes"),
         "library_ms": k3_total("library_ms"),
         "tiles": {r["name"]: "x".join(map(str, r["tile"])) for r in k3_rows},
-        "launches_by_path": by_path3d(4),
+        "launches_by_path": {
+            f"phase 7 rollout_packed g={PACK_G} {PACK_GRID}^2 x 16 x {PACK_ITERS}":
+                k3_launches,
+            f"7b rollout_packed g={WIDE_G} {PACK_GRID}^2 x {WIDE_MAPS} x {PACK_ITERS}":
+                wide_packed["k3_launches"],
+            **by_path3d(4),
+        },
+        # the wide instances: a packed step's 14 calls at g = 32 and 64 (6b)
+        "wide_steps": {f"g={gw}": k3_step(r) for gw, r in k3_wide.items()},
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2799,6 +3101,8 @@ def main() -> int:
                        "rollout_seconds": rollouts, "gridpoints_per_s": gps,
                        "first_rollout_s": first_s, "build_s": built.seconds,
                        "profile": profiles, "k3_calls": k3_rows,
+                       "k3_wide_calls": {str(gw): r for gw, r in k3_wide.items()},
+                       "wide_packed": wide_packed, "distribution": distribution,
                        "packed": {
                            "first_rollout_s": pack_first_s,
                            "rmse": pk_rmse.tolist(), "best_rmse": pk_best.tolist(),

@@ -14,8 +14,8 @@ Importing the package initialises no CUDA context and builds no kernel:
 the kernels are built at their first launch.
 
 `__all__` holds the JAX package's public names that are ported, under
-the same names. Not ported yet: `make_mesh`, and `checked` /
-`check_finite` / `debug_nans`.
+the same names. Not ported yet: `checked` / `check_finite` /
+`debug_nans`.
 """
 
 __version__ = "0.1.0"
@@ -30,6 +30,7 @@ from .core.config import (  # noqa: F401
     TrainingConfig,
     load_settings,
 )
+from .core.meshes import make_mesh  # noqa: F401
 from .data.ellipses import make_dataset as make_ellipses_dataset  # noqa: F401
 from .models import hybridnet, hybridnet3d, resnet  # noqa: F401
 from .models.activations import get_activation  # noqa: F401
@@ -95,6 +96,7 @@ __all__ = [
     "SourceConfig",
     "TrainingConfig",
     "load_settings",
+    "make_mesh",
     "make_ellipses_dataset",
     "hybridnet",
     "resnet",

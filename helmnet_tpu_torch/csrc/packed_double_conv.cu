@@ -2,7 +2,8 @@
 // conv3x3 (pad 1), optionally followed by a 1x1 conv (the UNet's outc head),
 // on the wide channel-packed tensors of models/packed.py (g problems packed
 // into the channel axis: 32 to 288 input channels, 32 or 128 mid and out
-// channels at g = 16).
+// channels at g = 16; 64 to 576 and 256 at g = 32; 128 to 1152 and 512 at
+// g = 64, the widest at which the TPU kernel runs).
 //
 // Replaces the TPU kernel helmnet_tpu/ops/pallas_unet.py:175
 // (fused_double_conv, body `_kernel` at :89, taps `_conv_taps` at :60). The
@@ -54,6 +55,11 @@
 // 64^2 and below (1 and 1, half of conv2's rows padding), where 8 x 16
 // would give 2 to 32 blocks for 132 SMs. Both keep one block on each SM
 // (169 and 214 KiB of shared memory).
+//
+// Mid, out and head widths above 128 go to the wide instances below, which
+// cut N into slices of 128 and so keep this design's accumulators, chunks
+// and ring; at 256^2 a g = 32 step does 4 x 178.9 GFLOP (0.72 ms at the bf16
+// rate), a g = 64 step 16 x.
 //
 // Plain C entry point, bound from Python with ctypes
 // (ops/packed_double_conv.py). It launches on the caller's stream, does not
@@ -366,15 +372,16 @@ __device__ __forceinline__ uint64_t b_desc(uint32_t saddr) {
 // shift), in three buffers used in turn (tap % 3: the same in every chunk,
 // as 9 taps fill 3 rounds), so that up to two taps' products are in flight
 // while the next tap's fragments load. Returns with at most the last two
-// taps' products in flight.
+// taps' products in flight. A's row stride is ASTR x `astr` bf16 (`astr`
+// for strides known only at run time).
 template <int G, int N, int ROWW, int ASTR, int TAPB>
 __device__ __forceinline__ void chunk_wgmma(float (&acc)[G][N / 2],
                                             uint32_t (&af)[3][G][4],
                                             const uint32_t (&a_base)[G],
-                                            uint32_t b_tap0) {
+                                            uint32_t b_tap0, int astr = 1) {
 #pragma unroll
   for (int tap = 0; tap < 9; ++tap) {
-    const int aoff = ((tap / 3) * ROWW + tap % 3) * ASTR * 2;
+    const int aoff = ((tap / 3) * ROWW + tap % 3) * ASTR * astr * 2;
     uint32_t (&ab)[G][4] = af[tap % 3];
     wgmma_wait<2>();  // the products that read `ab` three taps ago are done
 #pragma unroll
@@ -624,10 +631,11 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The output tiles (ops/packed_double_conv.TILES): 0 is 8 x 16, 1 is 4 x 8;
-// RING weight stages each. TILE_H: their heights.
+// The output tiles (ops/packed_double_conv.TILES), largest first: 0 is
+// 8 x 16 (the 128-wide instances only), 1 is 8 x 8 (the wide ones only), 2
+// is 4 x 8; RING weight stages each. TILE_H: their heights.
 constexpr int RING = 4;
-constexpr int TILE_H[2] = {8, 4};
+constexpr int TILE_H[3] = {8, 8, 4};
 
 template <int CMP, int COP>
 cudaError_t launch_tile(const Args& a, int B, int tile, cudaStream_t s) {
@@ -639,17 +647,328 @@ bool valid_pad(int padded, int c) {
   return (padded == 32 || padded == 128) && c > 0 && c <= padded;
 }
 
+// ---- the wide instances: mid, out or head widths above 128 ------------------
+// The same pipeline as above, with N cut into slices of SW = 128 columns, so
+// the accumulators, the weight chunks and the ring stay those of the 128-wide
+// instance:
+//   conv1 runs once per slice of SW mid channels, re-streaming the input
+//     chunks each time (they come from L2), and writes its slice of the
+//     intermediate into the shared mid tile, which holds all CMP channels;
+//   conv2 runs once per slice of SW out channels over that whole tile;
+//   the head, where there is one, adds each conv2 slice's bf16(h2 + b2)
+//     [M2 x SW] times the matching SW columns of w3 to accumulators that
+//     stay in registers across the slices; its B fragments come from
+//     global memory (read once per block, from L2).
+// The weights come slice-major: w1 as [CMP / SW][nck1][9][SW / 8][2][8][8],
+// w2 as [COP / SW][CMP / CK][9][SW / 8][2][8][8], so chunk q of the stream is
+// again one contiguous run of SW x 9 x 16 bf16. CMP and COP are runtime
+// multiples of SW up to MAX_WIDE; the mid tile's size follows CMP, so the
+// dynamic shared memory does too. Tiles: 4 x 8 for every width (62 KB of mid
+// tile at 512 channels) and 8 x 8 up to 256 mid channels and 128 head
+// channels (the head's accumulators must fit the registers).
+constexpr int SW = 128;
+constexpr int MAX_WIDE = 512;
+
+template <int TH, int TW, int STAGES, int CEMAX>
+struct WideCfg {
+  static constexpr int MH = TH + 2, MW = TW + 2, IH = TH + 4, IW = TW + 4;
+  static constexpr int M1 = MH * MW, M2 = TH * TW;
+  static constexpr int G1 = (M1 + 63) / 64, G2 = (M2 + 63) / 64;
+  static constexpr int N1 = SW / 2;  // each warpgroup: half of a slice
+  static constexpr bool SPLIT2 = G2 % 2 == 0;
+  static constexpr int T2 = SPLIT2 ? G2 / 2 : G2, N2 = SPLIT2 ? SW : SW / 2;
+  static constexpr int MT2 = M2 / 16;
+  static constexpr int WM2 = MT2 >= 4 ? 4 : MT2, WN2 = 8 / WM2;
+  static constexpr int MPW2 = MT2 / WM2;
+  static constexpr int NT3 = CEMAX / 8 / WN2;  // head n8 tiles a warp, at most
+  static constexpr int XT = IH * IW * XS;
+  static constexpr int SB = SW * WROW;          // one ring stage: one chunk
+  static constexpr int H2STR = SW + 8;          // a conv2 slice's h2 rows
+  // h2 of one slice goes into the input buffers (free after conv1) where
+  // it fits, else after the mid tile
+  static constexpr bool H2_IN_XS = M2 * H2STR <= 2 * XT;
+  static constexpr int NG = IH * IW * (CK / 4);
+  static constexpr int LV = (NG + THREADS - 1) / THREADS;
+  static constexpr size_t bytes(int cmp) {
+    return (size_t)(2 * XT + STAGES * SB + M1 * (cmp + 8) +
+                    (H2_IN_XS ? 0 : M2 * H2STR)) * sizeof(bf16);
+  }
+  static_assert(M2 % 16 == 0 && MT2 % WM2 == 0, "whole m16 tiles");
+  static_assert(STAGES >= 3, "two chunks in flight");
+};
+
+// Weight chunk q of the wide stream (nq1 conv1 chunks, then conv2's), each
+// SW rows, into ring stage `dst`; then commit a group.
+__device__ __forceinline__ void issue_weights_wide(bf16* dst, const Args& a,
+                                                   int q, int nq1, int total) {
+  if (q < total) {
+    const bf16* src = q < nq1 ? a.w1 + (size_t)q * SW * WROW
+                              : a.w2 + (size_t)(q - nq1) * SW * WROW;
+    const uint32_t base = smem_addr(dst);
+#pragma unroll 1
+    for (int i = threadIdx.x; i < SW * WROW / 8; i += THREADS)
+      cp_async16(base + i * 16, src + i * 8);
+  }
+  cp_async_commit();
+}
+
+template <int TH, int TW, int STAGES, int CEMAX>
+__global__ void __launch_bounds__(THREADS, 1)
+wide_double_conv_kernel(const __grid_constant__ Args a, int cmp, int cop) {
+  using C = WideCfg<TH, TW, STAGES, CEMAX>;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // 2 x [IH*IW][XS]
+  bf16* ring = xs + 2 * C::XT;                   // STAGES x SB
+  bf16* hs = ring + STAGES * C::SB;              // [M1][cmp + 8]
+  bf16* h2s = C::H2_IN_XS ? xs : hs + C::M1 * (cmp + 8);  // [M2][H2STR]
+  const int hstr = cmp + 8;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int cin = a.c[0] + a.c[1] + a.c[2];
+  const int ns1 = cmp / SW, ns2 = cop / SW, nck2 = cmp / CK;
+  const int nq1 = ns1 * a.nck1, total = nq1 + ns2 * nck2;
+  const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, ahalf = lane >> 4;
+  const int wg = warp >> 2, wl = warp & 3;
+
+  constexpr int D = STAGES - 2;
+#pragma unroll
+  for (int s = 0; s < D; ++s) issue_weights_wide(ring + s * C::SB, a, s, nq1, total);
+  float4 buf[C::LV];
+  if (a.vec) {
+    load_input<C>(buf, a, n, y0, x0, 0, cin);
+    store_input<C>(xs, buf);
+  } else {
+    stage_input_scalar<C>(xs, a, n, y0, x0, 0, cin);
+  }
+
+  // ---- conv1, one slice of SW mid channels at a time ----------------------
+  int pa[C::G1];
+#pragma unroll
+  for (int i = 0; i < C::G1; ++i) {
+    const int r = i * 64 + wl * 16 + arow;
+    pa[i] = r < C::M1 ? (r / C::MW) * C::IW + r % C::MW : 0;
+  }
+  const float slope = a.slope != nullptr ? __ldg(a.slope) : 0.f;
+  float acc1[C::G1][C::N1 / 2];
+  uint32_t af1[3][C::G1][4];
+  int q = 0;  // chunk of the weight stream; also picks the input buffer
+#pragma unroll 1
+  for (int s1 = 0; s1 < ns1; ++s1) {
+#pragma unroll
+    for (int i = 0; i < C::G1; ++i)
+#pragma unroll
+      for (int e = 0; e < C::N1 / 2; ++e) acc1[i][e] = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < a.nck1; ++k, ++q) {
+      cp_async_wait<D - 1>();
+      fence_proxy_async();
+      __syncthreads();
+      issue_weights_wide(ring + ((q + D) % STAGES) * C::SB, a, q + D, nq1, total);
+      // the next input chunk: k + 1, or chunk 0 again for the next slice
+      const bool more = k + 1 < a.nck1 || s1 + 1 < ns1;
+      const int kn = k + 1 < a.nck1 ? k + 1 : 0;
+      if (more && a.vec) load_input<C>(buf, a, n, y0, x0, kn, cin);
+      const bf16* xk = xs + (q & 1) * C::XT;
+      uint32_t a_base[C::G1];
+#pragma unroll
+      for (int i = 0; i < C::G1; ++i) a_base[i] = smem_addr(xk + pa[i] * XS + ahalf * 8);
+      const uint32_t wk = smem_addr(ring + (q % STAGES) * C::SB) + wg * (C::N1 / 8) * 256;
+      chunk_wgmma<C::G1, C::N1, C::IW, XS, SW * 32>(acc1, af1, a_base, wk);
+      bf16* xnext = xs + ((q + 1) & 1) * C::XT;
+      if (more && a.vec) store_input<C>(xnext, buf);
+      if (more && !a.vec) stage_input_scalar<C>(xnext, a, n, y0, x0, kn, cin);
+    }
+    wgmma_drain<C::G1, C::N1>(acc1);
+    // bias + PReLU of this slice, rounded to bf16; zero outside the image
+#pragma unroll
+    for (int i = 0; i < C::G1; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = i * 64 + wl * 16 + g + 8 * h;
+        if (r >= C::M1) continue;
+        const int gy = y0 - 1 + r / C::MW, gx = x0 - 1 + r % C::MW;
+        const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
+#pragma unroll
+        for (int j = 0; j < C::N1 / 8; ++j) {
+          const int c = s1 * SW + wg * C::N1 + j * 8 + 2 * t;
+          float v0 = 0.f, v1 = 0.f;
+          if (inside) {
+            v0 = acc1[i][4 * j + 2 * h] + (c < a.cm ? __ldg(a.b1 + c) : 0.f);
+            v1 = acc1[i][4 * j + 2 * h + 1] + (c + 1 < a.cm ? __ldg(a.b1 + c + 1) : 0.f);
+            v0 = fmaxf(v0, 0.f) + slope * fminf(v0, 0.f);
+            v1 = fmaxf(v1, 0.f) + slope * fminf(v1, 0.f);
+          }
+          *reinterpret_cast<uint32_t*>(hs + r * hstr + c) = pack_bf16(v0, v1);
+        }
+      }
+  }
+
+  // ---- conv2, one slice of SW out channels at a time ----------------------
+  const int t2 = C::SPLIT2 ? wg * C::T2 : 0;
+  const int ncol2 = C::SPLIT2 ? 0 : wg;
+  int ph[C::T2];
+#pragma unroll
+  for (int i = 0; i < C::T2; ++i) {
+    const int r = (t2 + i) * 64 + wl * 16 + arow;
+    ph[i] = r < C::M2 ? (r / TW) * C::MW + r % TW : 0;
+  }
+  const bool head = a.w3 != nullptr;
+  const int hm = warp % C::WM2, hn = warp / C::WM2;
+  float acc3[C::NT3][C::MPW2][4];
+#pragma unroll
+  for (int u = 0; u < C::NT3; ++u)
+#pragma unroll
+    for (int i = 0; i < C::MPW2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc3[u][i][e] = 0.f;
+  float acc2[C::T2][C::N2 / 2];
+  uint32_t af2[3][C::T2][4];
+#pragma unroll 1
+  for (int s2 = 0; s2 < ns2; ++s2) {
+#pragma unroll
+    for (int i = 0; i < C::T2; ++i)
+#pragma unroll
+      for (int e = 0; e < C::N2 / 2; ++e) acc2[i][e] = 0.f;
+#pragma unroll 1
+    for (int k2 = 0; k2 < nck2; ++k2, ++q) {
+      cp_async_wait<D - 1>();
+      fence_proxy_async();
+      __syncthreads();  // also: the intermediate is written, h2s is read
+      issue_weights_wide(ring + ((q + D) % STAGES) * C::SB, a, q + D, nq1, total);
+      uint32_t a_base[C::T2];
+#pragma unroll
+      for (int i = 0; i < C::T2; ++i)
+        a_base[i] = smem_addr(hs + ph[i] * hstr + k2 * CK + ahalf * 8);
+      const uint32_t wk = smem_addr(ring + (q % STAGES) * C::SB) + ncol2 * (C::N2 / 8) * 256;
+      chunk_wgmma<C::T2, C::N2, C::MW, 1, SW * 32>(acc2, af2, a_base, wk, hstr);
+    }
+    wgmma_drain<C::T2, C::N2>(acc2);
+
+    if (!head) {  // conv2 + bias is the output
+#pragma unroll
+      for (int i = 0; i < C::T2; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = (t2 + i) * 64 + wl * 16 + g + 8 * h;
+          const int gy = y0 + r / TW, gx = x0 + r % TW;
+          if (r >= C::M2 || gy >= a.H || gx >= a.W) continue;
+          float* op = a.out + (((size_t)n * a.H + gy) * a.W + gx) * a.co;
+#pragma unroll
+          for (int j = 0; j < C::N2 / 8; ++j) {
+            const int c = s2 * SW + ncol2 * C::N2 + j * 8 + 2 * t;
+            if (c < a.co) op[c] = acc2[i][4 * j + 2 * h] + __ldg(a.b2 + c);
+            if (c + 1 < a.co) op[c + 1] = acc2[i][4 * j + 2 * h + 1] + __ldg(a.b2 + c + 1);
+          }
+        }
+      continue;
+    }
+
+    // the head's share of this slice: bf16(h2 + b2) [M2 x SW] x w3[:, slice]
+#pragma unroll
+    for (int i = 0; i < C::T2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (t2 + i) * 64 + wl * 16 + g + 8 * h;
+        if (r >= C::M2) continue;
+#pragma unroll
+        for (int j = 0; j < C::N2 / 8; ++j) {
+          const int cl = ncol2 * C::N2 + j * 8 + 2 * t, c = s2 * SW + cl;
+          const float v0 = c < a.co ? acc2[i][4 * j + 2 * h] + __ldg(a.b2 + c) : 0.f;
+          const float v1 = c + 1 < a.co ? acc2[i][4 * j + 2 * h + 1] + __ldg(a.b2 + c + 1) : 0.f;
+          *reinterpret_cast<uint32_t*>(h2s + r * C::H2STR + cl) = pack_bf16(v0, v1);
+        }
+      }
+    __syncthreads();
+#pragma unroll
+    for (int u = 0; u < C::NT3; ++u) {
+      const int nt = hn + u * C::WN2;
+      if (nt >= a.cep / 8) break;
+      const uint32_t* wp = reinterpret_cast<const uint32_t*>(
+          a.w3 + (size_t)(nt * 8 + g) * cop + s2 * SW + 2 * t);
+#pragma unroll
+      for (int ks = 0; ks < SW / 16; ++ks) {
+        const uint32_t b0 = __ldg(wp + ks * 8), b1 = __ldg(wp + ks * 8 + 4);
+#pragma unroll
+        for (int i = 0; i < C::MPW2; ++i) {
+          uint32_t af[4];
+          ldmatrix_x4(af, smem_addr(h2s + ((hm * C::MPW2 + i) * 16 + arow) * C::H2STR +
+                                    ks * 16 + ahalf * 8));
+          mma16816(acc3[u][i], af, b0, b1);
+        }
+      }
+    }
+  }
+  if (!head) return;
+
+#pragma unroll
+  for (int u = 0; u < C::NT3; ++u) {
+    const int nt = hn + u * C::WN2;
+    if (nt >= a.cep / 8) break;
+    const int e = nt * 8 + 2 * t;
+#pragma unroll
+    for (int i = 0; i < C::MPW2; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (hm * C::MPW2 + i) * 16 + g + 8 * h;
+        const int gy = y0 + r / TW, gx = x0 + r % TW;
+        if (gy >= a.H || gx >= a.W) continue;
+        float* op = a.out + (((size_t)n * a.H + gy) * a.W + gx) * a.ce;
+        if (e < a.ce) op[e] = acc3[u][i][2 * h] + __ldg(a.b3 + e);
+        if (e + 1 < a.ce) op[e + 1] = acc3[u][i][2 * h + 1] + __ldg(a.b3 + e + 1);
+      }
+  }
+}
+
+// Wide tiles (ops/packed_double_conv.TILES): 2 is 4 x 8 (any width), 1 is
+// 8 x 8 (cmp <= 256, ce <= 128).
+using Wide48 = WideCfg<4, 8, RING, MAX_WIDE>;
+using Wide88 = WideCfg<8, 8, RING, 128>;
+
+bool wide_fits(int tile, int cmp, int ce) {
+  if (tile == 2) return true;
+  return tile == 1 && cmp <= 256 && ce <= 128;
+}
+
+template <int TH, int TW, int CEMAX>
+cudaError_t launch_wide(const Args& a, int B, int cmp, int cop, cudaStream_t stream) {
+  using C = WideCfg<TH, TW, RING, CEMAX>;
+  auto kernel = wide_double_conv_kernel<TH, TW, RING, CEMAX>;
+  static unsigned long long devices_done = 0;
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= 64) return cudaErrorInvalidDevice;
+  if (!((devices_done >> device) & 1ull)) {  // the most any width needs
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)C::bytes(TH == 4 ? MAX_WIDE : 256));
+    if (err != cudaSuccess) return err;
+    devices_done |= 1ull << device;
+  }
+  const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, B);
+  kernel<<<grid, THREADS, C::bytes(cmp), stream>>>(a, cmp, cop);
+  return cudaGetLastError();
+}
+
+bool valid_wide(int padded, int c) {
+  return padded % SW == 0 && padded <= MAX_WIDE && c > 0 && c <= padded;
+}
+
 }  // namespace
 
 // The dynamic shared memory of one instance, in bytes (tile as below), or
 // -1 for widths it does not take.
 extern "C" int hn_packed_double_conv_smem(int tile, int cmp, int cop) {
 #define HN_SMEM(M, O)                                                    \
-  if (cmp == M && cop == O)                                              \
+  if (cmp == M && cop == O && tile != 1)                                 \
     return tile == 0 ? (int)Cfg<8, 16, M, O, RING>::BYTES                \
                      : (int)Cfg<4, 8, M, O, RING>::BYTES;
   HN_SMEM(32, 32) HN_SMEM(32, 128) HN_SMEM(128, 32) HN_SMEM(128, 128)
 #undef HN_SMEM
+  if (!valid_wide(cmp, cmp) || !valid_wide(cop, cop)) return -1;
+  if (tile == 2) return (int)Wide48::bytes(cmp);
+  if (tile == 1 && cmp <= 256) return (int)Wide88::bytes(cmp);
   return -1;
 }
 
@@ -660,29 +979,36 @@ extern "C" int hn_packed_double_conv_smem(int tile, int cmp, int cop) {
 // w2: bf16 [cmp/16][9][cop/8][2][8][8]; b2: [co];
 // w3: bf16 [cep][cop] and b3: [ce] (the 1x1 head), or null with ce = 0;
 // out: [B, H, W, ce] with the head, else [B, H, W, co]. f32 contiguous.
-// cmp, cop: cm and co padded to 32 or 128; cep: ce padded to 8.
+// cmp, cop: cm and co padded to 32 or 128, or, where cm, co or ce is above
+// 128, each to a multiple of 128 up to 512 (the wide instances; w1 and w2
+// then slice-major, see above); cep: ce padded to 8.
 // vec: every part's channel count is a multiple of 4 and its pointer 16-byte
-// aligned (vector loads of the input). tile: 0 for 8 x 16 output tiles, 1
-// for 4 x 8 (ops/packed_double_conv.tile_for).
+// aligned (vector loads of the input). tile: 0 for 8 x 16 output tiles
+// (128-wide only), 1 for 8 x 8 (wide only, cmp <= 256 and ce <= 128), 2 for
+// 4 x 8 (ops/packed_double_conv.tile_for).
 extern "C" int hn_packed_double_conv(
     const float* x0, int c0, const float* x1, int c1, const float* x2, int c2,
     const void* w1, const float* b1, const float* slope, const void* w2,
     const float* b2, const void* w3, const float* b3, float* out, int B,
     int H, int W, int cm, int co, int ce, int cmp, int cop, int cep, int vec,
     int tile, void* stream) {
-  const int tile_h = tile >= 0 && tile < 2 ? TILE_H[tile] : 1;
+  // the wide instances take any widths above 128 (as multiples of SW)
+  const bool wide = cmp > MAX_WIDTH || cop > MAX_WIDTH || ce > MAX_WIDTH;
+  const int tile_h = tile >= 0 && tile < 3 ? TILE_H[tile] : 1;
+  const bool widths_ok =
+      wide ? valid_wide(cmp, cm) && valid_wide(cop, co) && wide_fits(tile, cmp, ce)
+           : valid_pad(cmp, cm) && valid_pad(cop, co) && (tile == 0 || tile == 2);
   if (x0 == nullptr || c0 <= 0 || c1 < 0 || c2 < 0 ||
       (c1 > 0 && x1 == nullptr) || (c2 > 0 && (x2 == nullptr || c1 == 0)) ||
       w1 == nullptr || b1 == nullptr || w2 == nullptr || b2 == nullptr ||
-      out == nullptr || !valid_pad(cmp, cm) || !valid_pad(cop, co) ||
-      tile < 0 || tile > 1 || B <= 0 || B > 65535 || H <= 0 || W <= 0 ||
-      (H + tile_h - 1) / tile_h > 65535) {
+      out == nullptr || !widths_ok || B <= 0 || B > 65535 || H <= 0 ||
+      W <= 0 || (H + tile_h - 1) / tile_h > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   if (w3 == nullptr) {
     if (ce != 0 || cep != 0) return (int)cudaErrorInvalidValue;
-  } else if (ce <= 0 || ce > MAX_WIDTH || cep != (ce + 7) / 8 * 8 ||
-             b3 == nullptr) {
+  } else if (ce <= 0 || ce > (wide ? MAX_WIDE : MAX_WIDTH) ||
+             cep != (ce + 7) / 8 * 8 || b3 == nullptr) {
     return (int)cudaErrorInvalidValue;
   }
   Args a;
@@ -709,6 +1035,10 @@ extern "C" int hn_packed_double_conv(
   a.nck1 = (c0 + c1 + c2 + CK - 1) / CK;
   a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    if (tile == 1) return (int)launch_wide<8, 8, 128>(a, B, cmp, cop, s);
+    return (int)launch_wide<4, 8, MAX_WIDE>(a, B, cmp, cop, s);
+  }
   if (cmp == 32 && cop == 32) return (int)launch_tile<32, 32>(a, B, tile, s);
   if (cmp == 32 && cop == 128) return (int)launch_tile<32, 128>(a, B, tile, s);
   if (cmp == 128 && cop == 32) return (int)launch_tile<128, 32>(a, B, tile, s);

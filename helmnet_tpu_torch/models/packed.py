@@ -15,7 +15,8 @@ block-diagonalised on their first two axes, group-major on both.
 `double_conv_mode='pallas'` (with precision 'default' and PReLU or ReLU)
 sends every DoubleConv to the packed fused CUDA kernel K3
 (ops/packed_double_conv.py): 14 per step at depth 4, with the 1x1 outc
-head folded into the last one. A multi-part input goes to it in plain
+head folded into the last one, at every g up to 64 for the default model
+(widths up to 512); above that it raises, with no fallback to cuDNN. A multi-part input goes to it in plain
 part-major order with the per-part weight rows (`_split_packed_rows`)
 concatenated to match, as the TPU wrapper does; the group-aware
 `_gconcat` order is the cuDNN branch's. `rollout_packed` converts the K3
@@ -153,7 +154,8 @@ def check_k3_shapes(params, cfg: ModelConfig, g: int, inc_splits=None,
     already g-fold) or, with `packed=False`, the unpacked ones. A refusal
     is deliberate: the port does not fall back to cuDNN in 'pallas' mode
     (the JAX package falls back to XLA convs there); K3's mid, out and head
-    widths stop at 128, so the default model runs at g <= 16."""
+    widths stop at 512, the widest at which the JAX kernel runs, so the
+    default model runs at g <= 64."""
     inc_splits = (cfg.in_channels,) if inc_splits is None else tuple(inc_splits)
     scale = 1 if packed else g
     for name, p, splits, post in _k3_sites(params, cfg, inc_splits):

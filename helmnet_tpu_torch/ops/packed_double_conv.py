@@ -17,7 +17,12 @@ sums, biases and PReLU are f32, as on the TPU. So its plain version is
   (bf16, chunks of 16 input channels, each tap's block in 8 x 8 core
   matrices, widths padded): `PackedWeights`.
   models/packed.py does it once per rollout.
-- `tile_for(batch, height, width)` picks the kernel's output tile.
+- `tile_for(batch, height, width, cmp, cop, ce)` picks the kernel's
+  output tile.
+- Mid, out and head widths up to 128 take the 128-wide instances; above
+  that, up to `MAX_WIDTH` = 512 (g = 64 at C = 8, the widest at which the
+  TPU kernel runs), the wide instances, which cut N into slices of 128
+  (`SLICE`) and take the weights slice-major.
 - `packed_double_conv(params, x)` takes the schema dict or a
   `PackedWeights`. Shapes the kernel does not take raise on every device.
   CUDA tensors launch the kernel or raise; CPU tensors take the plain
@@ -35,31 +40,57 @@ import torch
 from .double_conv import _check, _parts, _ptr, _slope, _w1, double_conv_plain
 
 MAX_PARTS = 3
-MAX_WIDTH = 128  # mid, out and head channels; the input is streamed
+MAX_WIDTH = 512  # mid, out and head channels; the input is streamed
+NARROW = 128  # the widest the 128-wide instances take
+SLICE = 128  # N columns a wide instance computes at a time
 CHUNK = 16  # input channels per K chunk of the kernel
 
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
-TILES = ((8, 16), (4, 8))  # the kernel's `tile` argument indexes this
+# the kernel's `tile` argument indexes this, largest first: 8 x 16 and 4 x 8
+# for the 128-wide instances, 8 x 8 and 4 x 8 for the wide ones
+TILES = ((8, 16), (8, 8), (4, 8))
+
+
+def is_wide(cm: int, co: int, ce: int = 0) -> bool:
+    """True when these mid, out and head widths take the wide instances."""
+    return max(cm, co, ce) > NARROW
+
+
+def tiles_for(cmp: int = NARROW, cop: Optional[int] = None, ce: int = 0) -> tuple:
+    """The tiles of the instance for padded mid and out widths `cmp` and
+    `cop` (default `cmp`) and head width `ce`, largest first: the wide
+    8 x 8 holds the mid tile of at most 256 channels and the head
+    accumulators of at most 128."""
+    if not is_wide(cmp, cmp if cop is None else cop, ce):
+        return TILES[0], TILES[2]
+    return TILES[1:] if cmp <= 256 and ce <= NARROW else TILES[2:]
 
 
 def _blocks(batch: int, height: int, width: int, tile) -> int:
     return batch * -(-height // tile[0]) * -(-width // tile[1])
 
 
-def tile_for(batch: int, height: int, width: int) -> tuple[int, int]:
-    """The kernel's output tile for a `batch` x `height` x `width` call:
-    the largest of `TILES` that gives at least half as many blocks as the
-    card has SMs, or the smallest (at g = 16, batch 1: 8 x 16 at 256^2 and
-    128^2, 4 x 8 at 64^2 and below)."""
-    for tile in TILES[:-1]:
+def tile_for(batch: int, height: int, width: int, cmp: int = NARROW,
+             cop: Optional[int] = None, ce: int = 0) -> tuple[int, int]:
+    """The kernel's output tile for a `batch` x `height` x `width` call of
+    the instance for padded widths `cmp`, `cop` and head width `ce`: the
+    largest of `tiles_for(cmp, cop, ce)` that gives at least half as many blocks
+    as the card has SMs, or the smallest (at g = 16, batch 1: 8 x 16 at
+    256^2 and 128^2, 4 x 8 at 64^2 and below; at g = 32, 8 x 8 at 256^2
+    and 128^2, 4 x 8 below; at g = 64, 4 x 8)."""
+    tiles = tiles_for(cmp, cop, ce)
+    for tile in tiles[:-1]:
         if 2 * _blocks(batch, height, width, tile) >= SMS:
             return tile
-    return TILES[-1]
+    return tiles[-1]
 
 
-def padded_width(c: int) -> int:
-    """Mid and out widths as the kernel instances take them: 32 or 128."""
+def padded_width(c: int, wide: bool = False) -> int:
+    """Mid and out widths as the kernel instances take them: 32 or 128 for
+    the 128-wide instances, a multiple of 128 for the wide ones."""
+    if wide:
+        return -(-c // SLICE) * SLICE
     return 32 if c <= 32 else 128
 
 
@@ -69,7 +100,8 @@ def supported(height: int, width: int, cin, cmid: int, cout: int,
     per-part channel counts. Unlike `pallas_unet.fused_supported`, no VMEM
     budget applies: the kernel streams the input channels and masks ragged
     edge tiles, so any grid and any input width go; mid, out and head
-    widths are at most 128 (g * C at g = 16 and C = 8)."""
+    widths are at most 512 (g * C at g = 64 and C = 8, the widest at which
+    `fused_supported` finds a tiling: at 16^2 and 8^2)."""
     cins = (cin,) if isinstance(cin, int) else tuple(cin)
     c_emit = cout if c_emit is None else c_emit
     return (
@@ -86,12 +118,18 @@ def _chunked(w: torch.Tensor, rows: int, cin_pad: int) -> torch.Tensor:
     matrix (n // 8, c // 8) of that tap's [rows x 16] block; element
     [k, tap, n // 8, c // 8, n % 8, c % 8] is w[n, 16 k + c, tap // 3,
     tap % 3]. A chunk is one contiguous run, and each tap's block is the
-    K-major layout without swizzle that wgmma reads from shared memory."""
+    K-major layout without swizzle that wgmma reads from shared memory.
+    Above 128 rows the chunks come slice-major, each of `SLICE` rows:
+    [rows / 128 * cin_pad / 16, 9, 16, 2, 8, 8], chunk s * (cin_pad / 16)
+    + k holding rows 128 s .. 128 s + 127 of chunk k."""
     o, i = w.shape[:2]
     wp = w.new_zeros((rows, cin_pad, 3, 3))
     wp[:o, :i] = w
-    wp = wp.reshape(rows // 8, 8, cin_pad // CHUNK, 2, 8, 9)  # ng r k kh c tap
-    return wp.permute(2, 5, 0, 3, 1, 4).to(torch.bfloat16).contiguous()
+    s = min(rows, SLICE)
+    # slice, n // 8 in it, n % 8, k, c // 8, c % 8, tap
+    wp = wp.reshape(rows // s, s // 8, 8, cin_pad // CHUNK, 2, 8, 9)
+    wp = wp.permute(0, 3, 6, 1, 4, 2, 5).reshape(-1, 9, s // 8, 2, 8, 8)
+    return wp.to(torch.bfloat16).contiguous()
 
 
 @dataclass(frozen=True)
@@ -105,17 +143,21 @@ class PackedWeights:
     cm: int
     co: int
     ce: int  # head width, 0 without the head
-    w1: torch.Tensor  # bf16 [ceil(cin / 16), 9, cmp / 8, 2, 8, 8]
-    w2: torch.Tensor  # bf16 [cmp / 16, 9, cop / 8, 2, 8, 8]
+    w1: torch.Tensor  # bf16 [ceil(cin / 16), 9, cmp / 8, 2, 8, 8], or slice-major
+    w2: torch.Tensor  # bf16 [cmp / 16, 9, cop / 8, 2, 8, 8], or slice-major
     w3: Optional[torch.Tensor]  # bf16 [ce padded to 8, cop]
 
     @property
+    def wide(self) -> bool:
+        return is_wide(self.cm, self.co, self.ce)
+
+    @property
     def cmp(self) -> int:
-        return padded_width(self.cm)
+        return padded_width(self.cm, self.wide)
 
     @property
     def cop(self) -> int:
-        return padded_width(self.co)
+        return padded_width(self.co, self.wide)
 
     @property
     def cep(self) -> int:
@@ -129,9 +171,10 @@ def prepare(params) -> PackedWeights:
     w1 = _w1(params)
     cm, cin = int(w1.shape[0]), int(w1.shape[1])
     co = int(params["c2"]["w"].shape[0])
-    cmp, cop = padded_width(cm), padded_width(co)
     post = params.get("post")
     ce = int(post["w"].shape[0]) if post else 0
+    wide = is_wide(cm, co, ce)
+    cmp, cop = padded_width(cm, wide), padded_width(co, wide)
     w3 = None
     if post:
         w3 = w1.new_zeros((-(-ce // 8) * 8, cop))
@@ -149,7 +192,8 @@ def packed_double_conv(params, x, *, tile=None) -> torch.Tensor:
     """DoubleConv (+ optional 1x1 head) on packed tensors as one CUDA
     kernel launch. `params`: the schema dict or a `PackedWeights`; `x`: an
     NHWC tensor or a tuple of up to 3; `tile`: one of `TILES`, by default
-    `tile_for`'s choice. Returns `[B, H, W, c_emit]` f32."""
+    `tile_for`'s choice (a tile its instance does not take raises).
+    Returns `[B, H, W, c_emit]` f32."""
     parts = _parts(x)
     device = parts[0].device
     b, h, w = parts[0].shape[:3]
@@ -174,6 +218,14 @@ def packed_double_conv(params, x, *, tile=None) -> torch.Tensor:
     for i, p in enumerate(parts):  # on every device, as the kernel takes them
         if p.dtype != torch.float32:
             raise ValueError(f"x[{i}] has dtype {p.dtype}, expected float32")
+    head = ce if post else 0
+    wide = is_wide(cm, co, head)
+    cmp, cop = padded_width(cm, wide), padded_width(co, wide)
+    tiles = tiles_for(cmp, cop, head)
+    tile = tile_for(b, h, w, cmp, cop, head) if tile is None else tuple(tile)
+    if tile not in tiles:
+        raise ValueError(f"tile {tile}: the instance for {cm} -> {co} -> {ce} "
+                         f"channels takes {tiles}")
     if device.type == "cpu":
         return double_conv_plain(fp, parts)
     if device.type != "cuda":
@@ -211,7 +263,7 @@ def packed_double_conv(params, x, *, tile=None) -> torch.Tensor:
             _ptr(pw.w2), _ptr(fp["c2"]["b"]),
             _ptr(pw.w3), _ptr(post["b"] if post else None),
             _ptr(out), b, h, w, cm, co, pw.ce, pw.cmp, pw.cop, pw.cep,
-            int(vec), TILES.index(tile_for(b, h, w) if tile is None else tuple(tile)),
+            int(vec), TILES.index(tile),
             ctypes.c_void_p(stream),
         )
     if rc != 0:

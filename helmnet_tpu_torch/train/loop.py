@@ -17,9 +17,20 @@ The reference training scheme (hybridnet.py:385-505):
 The network runs on cuDNN (`double_conv_mode='xla'`), as the JAX package
 trains on XLA convolutions: K1, the fused DoubleConv kernel, has no
 backward, and the JAX package cannot differentiate its Pallas kernel
-either, so `Trainer` refuses `'pallas'` mode. The JAX package's mesh
-(data-parallel sharding of the batch) and its checkify sanitizer are not
-ported; asking for them raises NotImplementedError.
+either, so `Trainer` refuses `'pallas'` mode. Its checkify sanitizer is
+not ported; asking for it raises NotImplementedError.
+
+Data parallelism (`mesh=`, a core/meshes.make_mesh mesh): every rank runs
+the same loop on the same seeds, so its replay buffer, draws and params
+stay equal to every other rank's. A train step takes the global batch,
+computes this rank's slice of it (`shard_experience`), all-reduces the
+gradients to their mean and the loss to the global one, and applies the
+same Adam step on every rank; the evolved experiences are all-gathered
+before the write-back. So a data=N run equals the single-process run step
+for step, up to the order of the sums. Only the primary rank writes logs
+and checkpoints. A mesh that splits the grid (y or x above 1) raises
+NotImplementedError: that needs halo-exchanged convolutions through the
+whole network (ROADMAP.md, Queue A item 8).
 
 Params are the port's nested dicts of leaf tensors; the trainer owns them
 (copies with `requires_grad`) and steps them in place with `torch.optim.Adam`.
@@ -37,6 +48,8 @@ import torch
 
 from ..core.config import Config
 from ..core.device import resolve_device
+from ..core.meshes import data_sharding
+from ..distributed import multihost
 from ..models.hybridnet import iter_leaves, map_leaves
 from ..models.registry import get_architecture
 from ..ops.source import line_source_map, point_source_map
@@ -118,6 +131,16 @@ def unrolled_loss(params, op, batch: ExperienceBatch, *, cfg: Config):
     return t.loss_amplify * torch.mean(ys["residuals"] ** 2), ys
 
 
+def shard_experience(mesh, batch: ExperienceBatch) -> ExperienceBatch:
+    """This rank's slice of an ExperienceBatch along the mesh's data axis,
+    on the mesh's device (the JAX package shards the fields over (data, y,
+    x) and the states and ages over data; the port splits only the batch).
+    Every rank passes the full global batch; `indices` stay global."""
+    s = data_sharding(mesh)
+    return ExperienceBatch(
+        *(multihost.put_global(a, s) for a in batch[:-1]), batch.indices)
+
+
 class PlateauScheduler:
     """ReduceLROnPlateau(min, factor, patience) — hybridnet.py:270-283.
     Kept apart from torch's `ReduceLROnPlateau`, whose default relative
@@ -170,16 +193,21 @@ class Trainer:
                 "every DoubleConv weight would get no gradient), and the JAX "
                 "package cannot differentiate its Pallas kernel either"
             )
-        if mesh is not None:
+        if mesh is not None and any(
+                mesh.size(a) > 1 for a in mesh.axis_names if a != "data"):
             raise NotImplementedError(
-                "mesh= (data-parallel sharding of the batch) is not ported "
-                "to PyTorch yet")
+                f"a mesh that splits the grid ({mesh.shape}) is not ported: "
+                "the port's Trainer is data-parallel only; spatial partition "
+                "of the UNet needs halo-exchanged convolutions through the "
+                "whole network (ROADMAP.md, Queue A item 8)")
         if sanitize:
             raise NotImplementedError(
                 "sanitize=True (the checkify-instrumented step) is not ported "
                 "to PyTorch yet")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = (mesh.device if mesh is not None and device is None
+                       else resolve_device(device))
         self.device_buffer = device_buffer
         self._dev_buf = None
         self._sos_pool = None
@@ -238,7 +266,7 @@ class Trainer:
         self.log_dir = log_dir
         self._log_file = None
         self._tb = None
-        if log_dir:
+        if log_dir and multihost.is_primary():
             os.makedirs(log_dir, exist_ok=True)
             self._log_file = open(os.path.join(log_dir, "train_log.jsonl"), "a")
             self._tb = self._make_tb_writer(log_dir)
@@ -276,9 +304,14 @@ class Trainer:
         Returns (metrics, evolved): loss, rel_loss and the raw grad norm as
         device scalars; the batch after `pick` + 1 unrolled steps, detached,
         with its per-sample mean(res^2)."""
+        mesh = self.mesh
+        if mesh is not None:
+            batch = shard_experience(mesh, batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss, ys = unrolled_loss(self.params, self.op, batch, cfg=self.cfg)
         loss.backward()
+        if mesh is not None:
+            self._mean_over_data([p.grad for _, p in iter_leaves(self.params)])
         grad_norm = apply_gradients(self.optimizer, self.cfg.training.gradient_clip)
         with torch.no_grad():
             evolved = {
@@ -294,7 +327,27 @@ class Trainer:
                 "rel_loss": torch.mean(torch.sqrt(torch.mean(res**2, dim=(2, 3, 4)))),
                 "grad_norm": grad_norm,
             }
+            if mesh is not None:
+                # equal shards: the global means are the means of the ranks'
+                self._mean_over_data([metrics["loss"], metrics["rel_loss"]])
+                n, group = mesh.size("data"), mesh.group("data")
+                evolved = {k: multihost.all_gather_dim(v, group, n, 0)
+                           for k, v in evolved.items()}
         return metrics, evolved
+
+    def _mean_over_data(self, tensors) -> None:
+        """Replace each tensor by its mean over the mesh's data axis, with
+        one all-reduce of their concatenation."""
+        group = self.mesh.group("data")
+        if group is None:
+            return
+        flat = torch.cat([t.reshape(-1) for t in tensors])
+        torch.distributed.all_reduce(flat, group=group)
+        flat /= self.mesh.size("data")
+        start = 0
+        for t in tensors:
+            t.copy_(flat[start:start + t.numel()].view_as(t))
+            start += t.numel()
 
     def _init_experiences(self, source: np.ndarray, sos_maps: np.ndarray) -> dict:
         """Fresh experiences, computed on the device, as numpy arrays."""
@@ -671,9 +724,12 @@ class Trainer:
         return {"lr": s.lr, "best": s.best, "bad_epochs": s.bad_epochs}
 
     def save(self, directory: str):
+        """Write a checkpoint (on the primary rank; every rank waits)."""
         from .checkpoint import save_checkpoint
 
-        save_checkpoint(directory, self.epoch, self._train_state())
+        if multihost.is_primary():
+            save_checkpoint(directory, self.epoch, self._train_state())
+        multihost.barrier("save")
 
     def save_topk(self, directory: str, val_loss: float, k: int = 3):
         """ModelCheckpoint(save_top_k=k on val_loss, save_last) semantics
@@ -681,10 +737,12 @@ class Trainer:
         plus the latest; prune the rest; persist LR-scheduler state."""
         from .checkpoint import update_topk
 
-        update_topk(
-            directory, self.epoch, val_loss, self._train_state(), k=k,
-            extra=self._scheduler_state(),
-        )
+        if multihost.is_primary():
+            update_topk(
+                directory, self.epoch, val_loss, self._train_state(), k=k,
+                extra=self._scheduler_state(),
+            )
+        multihost.barrier("save_topk")
 
     def restore(self, directory: str, best: bool = False) -> bool:
         """Resume from the latest checkpoint in `directory` (the reference's

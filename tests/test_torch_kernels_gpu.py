@@ -279,6 +279,52 @@ def test_k3_at_either_tile(cuda, tile):
                                atol=TOL * ref.abs().max().item())
 
 
+@pytest.mark.parametrize(
+    "n,cins,cmid,cout,c_emit",
+    [
+        (256, (64, 64, 64), 256, 256, None),    # inc at g=32: 8 x 8, wide
+        (33, (256, 256), 256, 256, None),       # enc signal at g=32, ragged
+        (256, (256, 256), 256, 256, 64),        # decode[0] + outc at g=32
+        (16, (512,), 512, 512, None),           # decode[4] at g=64: 4 x 8
+        (64, (512, 512), 512, 512, 128),        # decode[0] + outc at g=64
+        (20, (128, 128, 128), 512, 512, None),  # inc at g=64, ragged
+        (9, (40,), 300, 200, 130),              # odd widths, a head above 128
+        (17, (16, 16), 129, 20, None),          # mid 129: two slices
+        (24, (8,), 20, 384, None),              # out 384, mid one slice
+    ],
+)
+def test_k3_wide_matches_plain(cuda, n, cins, cmid, cout, c_emit):
+    """The wide instances (mid, out or head above 128) at the widths of the
+    g = 32 and g = 64 packed steps and at odd ones."""
+    rng = np.random.default_rng(n + cmid + cout)
+    p = _params(rng, sum(cins), cmid, cout, cuda, c_emit=c_emit)
+    p["c1"]["w"] = p["c1"]["w"] * 0.1
+    p["c2"]["w"] = p["c2"]["w"] * 0.1
+    w1 = p["c1"]["w"]
+    bounds = np.cumsum((0,) + cins)
+    split = dict(p, c1={"w": tuple(w1[:, a:b].contiguous()
+                                   for a, b in zip(bounds[:-1], bounds[1:])),
+                        "b": p["c1"]["b"]})
+    _check_k3(split, _inputs(rng, 1, n, 2 * n - 1, cins, cuda))
+
+
+@pytest.mark.parametrize("tile", [(8, 8), (4, 8)])
+def test_k3_wide_at_either_tile(cuda, tile):
+    """Each tile of the wide instance gives the plain version's result."""
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv, prepare
+
+    rng = np.random.default_rng(17)
+    p = _params(rng, 160, 256, 256, cuda, c_emit=64)
+    p["c1"]["w"] = p["c1"]["w"] * 0.1
+    p["c2"]["w"] = p["c2"]["w"] * 0.1
+    parts = _inputs(rng, 2, 36, 20, (160,), cuda)
+    ref = double_conv_plain(p, parts)
+    got = packed_double_conv(prepare(p), parts, tile=tile)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                               atol=TOL * ref.abs().max().item())
+
+
 def test_k3_relu_without_slope(cuda):
     rng = np.random.default_rng(1)
     p = _params(rng, 96, 128, 128, cuda, act=False)
@@ -323,8 +369,10 @@ def test_k3_wrapper_rejects(cuda):
     with pytest.raises(ValueError, match="dtype"):
         packed_double_conv(p, x.double())
     with pytest.raises(ValueError, match="unsupported"):
-        wide = _params(rng, 32, 136, 32, cuda)
+        wide = _params(rng, 32, 520, 32, cuda)
         packed_double_conv(wide, x)
+    with pytest.raises(ValueError, match="tile"):
+        packed_double_conv(p, x, tile=(8, 8))
     with pytest.raises(ValueError, match="unsupported"):
         four = _params(rng, 32, 32, 32, cuda)
         packed_double_conv(four, _inputs(rng, 1, 16, 16, (8, 8, 8, 8), cuda))

@@ -188,25 +188,45 @@ def test_rollout_packed_raises():
 
 
 def test_rollout_packed_refuses_k3_widths_before_converting(monkeypatch):
-    """At g=32 the default model's mid and out widths are 256, above K3's
-    128: 'pallas' mode raises ValueError naming the shape before any K3
-    weight is converted (no fallback to cuDNN), and 'xla' mode runs."""
+    """At g=128 the default model's mid and out widths are 1024, above
+    K3's 512 (the widest at which the JAX kernel runs): 'pallas' mode
+    raises ValueError naming the shape before any K3 weight is converted
+    (no fallback to cuDNN), and 'xla' mode runs."""
     _, ts = _solvers(double_conv_mode="pallas", precision="default")
     converted = []
     monkeypatch.setattr(tp, "prepare", lambda p: converted.append(p))
-    src = ts.source.expand(32, -1, -1, -1)
-    with pytest.raises(ValueError, match=r"K3 does not take inc at g=32.*128"):
-        tp.rollout_packed(ts.params, ts.op, src, _sos(32), cfg=ts.cfg, g=32,
+    g = 128
+    src = ts.source.expand(g, -1, -1, -1)
+    with pytest.raises(ValueError, match=r"K3 does not take inc at g=128.*512"):
+        tp.rollout_packed(ts.params, ts.op, src, _sos(g), cfg=ts.cfg, g=g,
                           num_iterations=1, device="cpu")
-    packed = tp.pack_params(ts.params, 32)
+    packed = tp.pack_params(ts.params, g)
     with pytest.raises(ValueError, match="K3 does not take"):
-        tp.prepare_k3(packed, ts.cfg.model, 32, inc_splits=(2, 2, 2))
+        tp.prepare_k3(packed, ts.cfg.model, g, inc_splits=(2, 2, 2))
     assert converted == []
     xla = ts.cfg.replace(model=dataclasses.replace(ts.cfg.model,
                                                    double_conv_mode="xla"))
-    out = tp.rollout_packed(ts.params, ts.op, src, _sos(32), cfg=xla, g=32,
+    out = tp.rollout_packed(ts.params, ts.op, src, _sos(g), cfg=xla, g=g,
                             num_iterations=1, device="cpu")
     assert bool(torch.isfinite(out["rmse"]).all())
+
+
+def test_rollout_packed_pallas_at_g32_matches_jax():
+    """g=32 (mid and out widths 256, the wide K3 instances on the card) in
+    'pallas' mode: the port's rollout on K3's plain version against JAX's
+    on its Pallas kernel in interpret mode, rmse at rtol 0.05
+    (test_pallas_unet.py:116)."""
+    js, ts = _solvers(precision="default", double_conv_mode="pallas")
+    g = 32
+    sos, src = _sos(g, seed=4), _src(js, g)
+    kw = dict(g=g, num_iterations=2, collect=("rmse",))
+    ref = jp.rollout_packed(js.params, js.op, jnp.asarray(src), jnp.asarray(sos),
+                            cfg=js.cfg, **kw)
+    got = tp.rollout_packed(ts.params, ts.op, src, sos, cfg=ts.cfg, device="cpu",
+                            **kw)
+    assert got["rmse"].shape == (2, g)
+    np.testing.assert_allclose(got["rmse"].numpy(), np.asarray(ref["rmse"]),
+                               rtol=0.05, atol=1e-8)
 
 
 def test_pallas_step_calls_k3_fourteen_times(monkeypatch):

@@ -18,10 +18,14 @@ from helmnet_tpu_torch.models.blocks import hwio_to_torch_conv
 from helmnet_tpu_torch.ops.double_conv import double_conv_plain
 from helmnet_tpu_torch.ops.packed_double_conv import (
     CHUNK,
+    MAX_WIDTH,
+    TILES,
     packed_double_conv,
     padded_width,
     prepare,
     supported,
+    tile_for,
+    tiles_for,
 )
 from helmnet_tpu_torch.weights import from_jax_params
 
@@ -180,10 +184,12 @@ def test_supported_bounds():
     assert supported(256, 256, (128, 128), 128, 128, c_emit=32)
     assert supported(17, 33, (3, 5, 7), 10, 6, 5)
     assert supported(16, 16, 512, 128, 128)        # any input width
+    assert supported(16, 16, (128, 128, 128), 512, 512, c_emit=128)  # g = 64
+    assert supported(96, 96, 32, 129, 32)          # the wide instances
     assert not supported(96, 96, (8, 8, 8, 8), 8, 8)   # at most 3 parts
-    assert not supported(96, 96, 32, 129, 32)
-    assert not supported(96, 96, 32, 32, 129)
-    assert not supported(96, 96, 32, 32, 32, c_emit=129)
+    assert not supported(96, 96, 32, 513, 32)
+    assert not supported(96, 96, 32, 32, 513)
+    assert not supported(96, 96, 32, 32, 32, c_emit=513)
     assert not supported(0, 96, 32, 32, 32)
 
 
@@ -195,8 +201,10 @@ def test_wrapper_rejects():
     with pytest.raises(ValueError, match="unsupported"):
         packed_double_conv(tp, (x[..., :2],) * 4)
     with pytest.raises(ValueError, match="unsupported"):
-        wide = from_jax_params(_jax_params(8, 130), device="cpu")
+        wide = from_jax_params(_jax_params(8, MAX_WIDTH + 1), device="cpu")
         packed_double_conv(wide, x)
+    with pytest.raises(ValueError, match="tile"):
+        packed_double_conv(tp, x, tile=(8, 8))  # a wide instance's tile
     with pytest.raises(ValueError, match="dtype"):
         packed_double_conv(tp, x.double())
     with pytest.raises(ValueError, match="slices"):
@@ -205,3 +213,88 @@ def test_wrapper_rejects():
         packed_double_conv(split, (x[..., :4], x[..., 4:]))
     with pytest.raises(ValueError, match="cuda or cpu"):
         packed_double_conv(tp, x.to("meta"))
+
+
+# The JAX kernel's widths above 128 (g = 32 and g = 64 of the default
+# model, 8 channels a problem): one part, or the `inc` layout's three
+# parts of 2 channels a problem, with and without the fused head, at the
+# levels where `fused_supported` finds a tiling for them.
+WIDE_CASES = [
+    # (g, per-group part widths, grid, head)
+    (32, (8,), 16, False),
+    (32, (2, 2, 2), 16, True),
+    (32, (8, 8), 8, True),
+    (64, (8,), 8, True),
+    (64, (2, 2, 2), 16, False),
+    (64, (2, 2, 2), 8, True),
+]
+
+
+@pytest.mark.parametrize("g,splits,n,head", WIDE_CASES)
+def test_wide_matches_pallas_kernel(g, splits, n, head):
+    jp = _packed_jax(sum(splits), 8, g, seed=g + n)
+    if len(splits) > 1:
+        jfp, tp = _split(jp, list(splits), g)
+    else:
+        jfp, tp = jp, from_jax_params(jp, device="cpu")
+    if head:
+        rng = np.random.default_rng(g)
+        post = {"w": rng.standard_normal((1, 1, 8 * g, 2 * g)).astype(np.float32) * 0.1,
+                "b": rng.standard_normal(2 * g).astype(np.float32) * 0.1}
+        jfp = dict(jfp, post=post)
+        tp["post"] = {"w": torch.from_numpy(hwio_to_torch_conv(post["w"])),
+                      "b": torch.from_numpy(post["b"])}
+    xs = [_x((1, n, n, c * g), 20 + i) for i, c in enumerate(splits)]
+    ref = jax_fused(jfp, tuple(map(jnp.asarray, xs)), interpret=True)
+    pw = prepare(tp)
+    assert pw.wide and (pw.cmp, pw.cop) == (8 * g, 8 * g)
+    got = packed_double_conv(pw, tuple(map(torch.from_numpy, xs)))
+    assert got.shape == (1, n, n, (2 if head else 8) * g)
+    _close(got, ref)
+
+
+def test_wide_prepared_layout():
+    """Above 128 rows the chunks come slice-major: chunk s * nck + k holds
+    rows 128 s .. 128 s + 127 of input chunk k, in the 128-row layout; the
+    widths are padded to multiples of 128 (a 32-wide side too)."""
+    rng = np.random.default_rng(12)
+    t = lambda *s: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+    p = {"c1": {"w": t(300, 40, 3, 3), "b": t(300)},
+         "act": {"a": torch.tensor([0.25])},
+         "c2": {"w": t(20, 300, 3, 3), "b": t(20)},
+         "post": {"w": t(130, 20, 1, 1), "b": t(130)}}
+    pw = prepare(p)
+    assert pw.wide and (pw.cmp, pw.cop, pw.cep) == (384, 128, 136)
+    nck1, nck2 = 3, 384 // CHUNK
+    assert pw.w1.shape == (3 * nck1, 9, 16, 2, 8, 8)
+    assert pw.w2.shape == (1 * nck2, 9, 16, 2, 8, 8)
+    assert pw.w3.shape == (136, 128)
+    w1 = p["c1"]["w"].to(torch.bfloat16)
+    for n, c, tap in [(0, 0, 0), (129, 17, 4), (299, 39, 8), (255, 33, 2)]:
+        s_, k = n // 128, c // CHUNK
+        nn, cc = n % 128, c % CHUNK
+        assert pw.w1[s_ * nck1 + k, tap, nn // 8, cc // 8, nn % 8, cc % 8] == \
+            w1[n, c, tap // 3, tap % 3]
+    u1 = _unchunk(pw.w1)  # [s * nck + k, n % 128, tap, c]
+    assert not u1[2 * nck1:, 300 - 256:].any()  # rows 300..383: padding
+    assert not u1[nck1 - 1, :, :, 8:].any()      # channels 40..47: padding
+    w2 = p["c2"]["w"].to(torch.bfloat16)
+    assert pw.w2[17, 5, 19 // 8, 1, 19 % 8, 7] == w2[19, 17 * CHUNK + 15, 1, 2]
+    assert padded_width(129, wide=True) == 256 and padded_width(32, wide=True) == 128
+
+
+def test_tiles_of_each_instance():
+    """The 128-wide instances take 8 x 16 and 4 x 8; the wide ones 8 x 8
+    (mid width up to 256, head up to 128) and 4 x 8; `tile_for` picks the
+    larger where it gives at least half as many blocks as the card has
+    SMs."""
+    assert tiles_for(128) == ((8, 16), (4, 8)) == tiles_for(32, ce=128)
+    assert tiles_for(256, ce=64) == ((8, 8), (4, 8))
+    assert tiles_for(512, ce=128) == ((4, 8),)
+    assert tiles_for(256, ce=136) == ((4, 8),)
+    assert tiles_for(128, 256) == ((8, 8), (4, 8))  # out width 256: wide
+    assert tile_for(1, 256, 256) == (8, 16) and tile_for(1, 64, 64) == (4, 8)
+    assert tile_for(1, 256, 256, 256, ce=64) == (8, 8)
+    assert tile_for(1, 128, 128, 256) == (8, 8)
+    assert tile_for(1, 64, 64, 256) == (4, 8)
+    assert tile_for(1, 256, 256, 512) == (4, 8)

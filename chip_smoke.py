@@ -14,7 +14,9 @@ steps, and the classical solvers (learned-preconditioned FGMRES,
 two-level, deflated GMRES, hybrid, `solve_auto`, `cli/solve`) with the
 tpu_r2c weights, serving (`SolverService`, `cli/serve`) with the
 remaining 2D entry points, the 3D solvers with the tpu3d_a and tpu3d_het
-weights, and the distribution modules on NCCL, and checks them all:
+weights, the distribution modules on NCCL, and the skull solve at
+512^2, `produce_figures`' compute path, the sanitizers and the dry run,
+and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -221,7 +223,29 @@ weights, and the distribution modules on NCCL, and checks them all:
    trips, equal; (e) a data=1 mesh `Trainer` against the plain one over an
    epoch of 3 steps (experiments/base.json, batch 32, 96 maps) under
    cuDNN's deterministic algorithms: loss, every param and the written-back
-   wavefields within 1e-6 of max|ref|; no hand-kernel launch.
+   wavefields within 1e-6 of max|ref|; no hand-kernel launch;
+16. the last modules (`last_slice_phase`): (a) `produce_figures --skull`'s
+   solve, `skull_example_problem(512)` with its arc source, the tpu_r2c
+   weights on the default config in 'pallas' mode, 3000 iterations: K1
+   against its plain version at the 14 calls of a 512^2 step (atol 2e-2
+   max|ref|), exactly 14 x 3000 K1 launches, the first 4 rmse within rtol
+   0.05 of a cuDNN f32 forward, the best iterate finite and at most the
+   first rmse over 5 (the model diverges on this problem after its best
+   iterate, on K1 and cuDNN alike), wall, gridpoints/s and a 20-step
+   profile; (b) `produce_figures`' compute path without drawing: 2
+   generated maps at 96^2, 200 iterations, `compare_solvers` and the f64
+   `solve_helmholtz_refined` truth, every l_inf finite and the learned
+   one against the truth below 1e-3, no hand-kernel launch; (c) the
+   sanitizers: `checked` around a 'pallas' rollout (8 test maps, 10
+   steps) equal to the unchecked one to the bit under cuDNN's
+   deterministic algorithms (exactly 140 K1 launches) and its wall
+   overhead, a NaN in K1's input named by K1, `Trainer(sanitize=True)`
+   equal to `sanitize=False` on a clean step and, on a poisoned one,
+   raising with params and Adam state unchanged, `solve_helmholtz_checked`
+   on the order-4 stencil at 96^2 equal to the unchecked solve (221 K2a
+   launches) and a NaN medium named by K2a; (d) `dryrun.entry()` on the
+   card within 1e-5 of the CPU, and `dryrun_multichip(1)` on an NCCL
+   group of world size 1.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -326,6 +350,13 @@ BATCH3D_RTOL = 1e-3  # 14c: batched against single solves, * max|u|
 AUTO3D_CYCLES = 3  # 14f: outer cycles of the two-level plan on the 64^3 cube
 REMAT_RTOL = 1e-5  # 14g: remat on against off, loss and each grad leaf
 TRAIN3D_PROFILE_STEPS = 1
+SKULL_GRID, SKULL_ITERS = 512, 3000  # 16a: produce_figures --skull
+SKULL_PROFILE_STEPS = 20
+SKULL_DROP = 5.0  # 16a: the best rmse at most the first over this
+FIG_MAPS, FIG_ITERS = 2, 200  # 16b: produce_figures' flow at the default 96^2
+FIG_LINF = 1e-3  # 16b: learned l_inf against the f64 truth, PML-cropped
+SANITIZE_MAPS, SANITIZE_ITERS = 8, 10  # 16c
+DRYRUN_RTOL = 1e-5  # 16d: dryrun.entry() on the card against the CPU
 
 
 def log(msg: str) -> None:
@@ -2367,6 +2398,256 @@ def distribution_phase(dev, cfg, params, hand_kernels) -> dict:
     return out
 
 
+def last_slice_phase(dev, cfg_kernel, cfg_cudnn, hand_kernels) -> dict:
+    """Phase 16: the last modules of the port. (a) the transcranial skull
+    solve at full size, as `produce_figures --skull` runs it; (b)
+    `produce_figures`' compute path without drawing; (c) the sanitizers on
+    the card; (d) the dry run on one card. Every gate failure exits; the
+    returned dict holds what was measured. `hand_kernels()` reads the
+    launch counts of K2a, K2b, K2c, K1 and K3."""
+    import socket
+
+    from helmnet_tpu_torch import dryrun
+    from helmnet_tpu_torch.cli.produce_figures import skull_solve, truth_errors
+    from helmnet_tpu_torch.core.config import Config
+    from helmnet_tpu_torch.core.sanitize import checked
+    from helmnet_tpu_torch.data.ellipses import make_dataset
+    from helmnet_tpu_torch.distributed import multihost
+    from helmnet_tpu_torch.eval.harness import compare_solvers
+    from helmnet_tpu_torch.models.hybridnet import iter_leaves
+    from helmnet_tpu_torch.ops.double_conv import (double_conv_plain, fused_double_conv,
+                                                   prepare, tile_for)
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+    from helmnet_tpu_torch.solvers.gmres import solve_helmholtz, solve_helmholtz_checked
+    from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
+    from helmnet_tpu_torch.train.loop import Trainer
+    from helmnet_tpu_torch.weights import load_params_npz
+
+    t0 = time.perf_counter()
+    out = {}
+    steps = 14  # K1 launches a learned step (phase 4)
+    params = load_params_npz(R2C_NPZ, cfg_kernel, device=dev)
+
+    # -- 16a: the skull solve at 512^2 -----------------------------------------
+    # the CLI's config (Config(), `from_params_npz`'s default) on K1
+    base = Config()
+    cfg_skull = base.replace(model=dataclasses.replace(base.model, double_conv_mode="pallas"))
+    n = SKULL_GRID
+    gen = torch.Generator(device=dev).manual_seed(16)
+    k1_check = {}
+    for name, p, m, cins in step_calls(params, cfg_skull.model, n):
+        parts = tuple(torch.randn((1, m, m, c), generator=gen, device=dev) for c in cins)
+        ref_out = double_conv_plain(p, parts)
+        got_out = fused_double_conv(prepare(p), parts)
+        torch.cuda.synchronize()
+        err = (got_out - ref_out).abs().max().item()
+        scale = ref_out.abs().max().item()
+        ok = bool(torch.isfinite(got_out).all()) and err <= KERNEL_RTOL * scale
+        k1_check[name] = {"grid": m, "tile": list(tile_for(1, m, m)), "max_abs_err": err,
+                          "atol": KERNEL_RTOL * scale}
+        log(f"phase 16a K1 {name:20s} 1 x {m}^2, tile {tile_for(1, m, m)}: max|err| "
+            f"{err:.3e} (atol {KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"K1 disagrees with its plain version at {name}, 1 x {m}^2")
+    out["k1_against_plain"] = k1_check
+    solver = IterativeSolver(cfg_skull, params=params, device=dev)
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    sos, res = skull_solve(solver, n, SKULL_ITERS)
+    torch.cuda.synchronize()
+    skull_s = time.perf_counter() - t
+    counts = hand_kernels()
+    rmse = res["rmse"][:, 0].cpu().numpy()
+    _, ref = skull_solve(IterativeSolver(base, params=params, device=dev), n, 4)
+    ref_rmse = ref["rmse"][:, 0].cpu().numpy()
+    early = np.abs(rmse[:4] - ref_rmse) / ref_rmse
+    finite = np.isfinite(rmse)
+    best_at = int(np.argmin(np.where(finite, rmse, np.inf)))
+    blow_up = int(np.argmin(finite)) if not finite.all() else None
+    prof = profile_steps(lambda k: rollout(solver.params, solver.op, solver.source, sos[None],
+                                           cfg=solver.cfg, num_iterations=k, device=dev),
+                         SKULL_PROFILE_STEPS)
+    gps = n * n * SKULL_ITERS / skull_s
+    log(f"phase 16a skull_example_problem({n}) x {SKULL_ITERS} ('pallas', tpu_r2c): "
+        f"{skull_s:.2f} s, {gps:.4e} gridpoints/s, launches K2a/K2b/K2c/K1/K3 {counts}; "
+        f"rmse {rmse[0]:.4e}, best {rmse[best_at]:.4e} at iteration {best_at + 1} (bound "
+        f"first / {SKULL_DROP}), first non-finite at {blow_up}, last {rmse[-1]:.4e}; first "
+        f"4 against 'xla' f32 max rel diff {early.max():.3e} (rtol {EARLY_RTOL}); profile "
+        f"of {SKULL_PROFILE_STEPS} steps: wall {prof['wall_ms_per_step']:.3f} ms, device "
+        f"{prof['device_ms_per_step']:.3f} ms a step, busy share {prof['busy_share']:.4f}")
+    if counts != (0, 0, 0, steps * SKULL_ITERS, 0):
+        fail(f"the skull solve launched {counts}, not {steps * SKULL_ITERS} K1 alone")
+    # tpu_r2c diverges on this problem after its best iterate, on K1 and on
+    # cuDNN f32 alike (PERF.md, Findings): what the CLI draws is the best
+    # iterate, which `forward` returns
+    if not (rmse[best_at] <= rmse[0] / SKULL_DROP
+            and bool(torch.isfinite(res["wavefield"]).all())):
+        fail("the skull solve's best iterate is not finite or not below the first / "
+             f"{SKULL_DROP}")
+    if not early.max() <= EARLY_RTOL:
+        fail("the skull solve on K1 disagrees with the cuDNN f32 forward")
+    out["skull"] = {"seconds": skull_s, "gridpoints_per_s": gps, "k1_launches": counts[3],
+                    "rmse_first": float(rmse[0]), "rmse_last": float(rmse[-1]),
+                    "rmse_best": float(rmse[best_at]), "best_iteration": best_at + 1,
+                    "first_non_finite": blow_up, "xla_rel_diff": float(early.max()),
+                    "profile": prof}
+
+    # -- 16b: produce_figures' compute path, no drawing -------------------------
+    fsolver = IterativeSolver.from_params_npz(R2C_NPZ, device=dev)  # the CLI's solver
+    maps = make_dataset(FIG_MAPS, fsolver.height, seed=123)  # the CLI's generated maps
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fwd = fsolver.forward(maps, num_iterations=FIG_ITERS, collect=("rmse", "wavefields"),
+                          decimate=FIG_ITERS)
+    cmps = [compare_solvers(fsolver, m, num_iterations=FIG_ITERS, decimate=FIG_ITERS // 10,
+                            gmres_restart=50, gmres_max_restarts=20, gmres_tol=1e-7)
+            for m in maps]
+    lm, rm, lg, rg = truth_errors(fsolver, maps, cmps)
+    torch.cuda.synchronize()
+    fig_s = time.perf_counter() - t
+    counts = hand_kernels()
+    linfs = [c.linf for c in cmps]
+    log(f"phase 16b produce_figures compute ({FIG_MAPS} x {fsolver.height}^2, {FIG_ITERS} "
+        f"iterations, 'xla'): {fig_s:.2f} s; l_inf vs GMRES {linfs}; vs f64 truth: learned "
+        f"l_inf {lm} (bound {FIG_LINF}), GMRES {lg}; launches {counts}")
+    every = np.array(linfs + lm + rm + lg + rg)
+    if not (np.all(np.isfinite(every)) and bool(torch.isfinite(fwd["rmse"]).all())):
+        fail("produce_figures' compute path gave non-finite errors")
+    if not max(lm) <= FIG_LINF:
+        fail("the learned solve's l_inf against the f64 truth is above its bound")
+    if any(counts):
+        fail(f"hand kernels launched on the 'xla' figures path: {counts}")
+    out["figures"] = {"seconds": fig_s, "linf_vs_gmres": linfs, "learned_linf": lm,
+                      "learned_rmse": rm, "gmres_linf": lg, "gmres_rmse": rg}
+
+    # -- 16c: the sanitizers -----------------------------------------------------
+    sos96 = np.load("datasets/splitted_96/testset.npz")["maps"][:SANITIZE_MAPS]
+    solver96 = IterativeSolver(cfg_kernel, params=params, device=dev)
+    src96 = solver96.source.expand(SANITIZE_MAPS, -1, -1, -1)
+
+    def run():
+        return rollout(params, solver96.op, src96, sos96, cfg=cfg_kernel,
+                       num_iterations=SANITIZE_ITERS, device=dev)
+
+    with deterministic_cudnn():
+        run()  # warm
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        plain = run()
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t
+        reset_counts()
+        t = time.perf_counter()
+        chk = checked(run)()
+        torch.cuda.synchronize()
+        chk_s = time.perf_counter() - t
+    counts = hand_kernels()
+    same = all(torch.equal(plain[k], chk[k]) for k in ("wavefield", "residual", "rmse"))
+    log(f"phase 16c checked rollout {SANITIZE_MAPS} x {GRID}^2 x {SANITIZE_ITERS} "
+        f"('pallas'): equal to the unchecked one to the bit: {same}; wall {chk_s:.4f} s "
+        f"against {plain_s:.4f} s ({chk_s / plain_s:.2f}x); launches {counts}")
+    if not same or counts != (0, 0, 0, steps * SANITIZE_ITERS, 0):
+        fail("the checked rollout differs from the unchecked one, or its launches do")
+    x = torch.randn((SANITIZE_MAPS, GRID, GRID, cfg_kernel.model.in_channels),
+                    generator=gen, device=dev)
+    x[0, 5, 5, 0] = float("nan")
+    try:
+        checked(fused_double_conv)(prepare(params["inc"]), x)
+        fail("a NaN in K1's input raised nothing under checked")
+    except FloatingPointError as e:
+        k1_msg = str(e)
+    log(f"phase 16c a NaN in K1's input: {k1_msg}")
+    if "K1 (fused_double_conv" not in k1_msg:
+        fail("the NaN that went through K1 is not named by K1")
+    cfg_t = cfg_cudnn.replace(training=dataclasses.replace(
+        cfg_cudnn.training, buffer_size=SANITIZE_MAPS, train_batch_size=4, unrolling_steps=3))
+    with deterministic_cudnn():
+        ta = Trainer(cfg_t, params=params, sanitize=True, device=dev)
+        tb = Trainer(cfg_t, params=params, device=dev)
+        ta.fill_buffer(sos96)
+        batch = ta._to_device(ta.buffer.sample(4))
+        ma, _ = ta._train_step(batch, 1)
+        mb, _ = tb._train_step(batch, 1)
+    clean = float(ma["loss"]) == float(mb["loss"]) and all(
+        torch.equal(a, b) for (_, a), (_, b) in zip(iter_leaves(ta.params),
+                                                    iter_leaves(tb.params)))
+    before = {k: v.detach().clone() for k, v in iter_leaves(ta.params)}
+    state = {i: {k: v.clone() for k, v in s.items()}
+             for i, s in ta.optimizer.state_dict()["state"].items()}
+    wf = batch.wavefield.clone()
+    wf[0, 5, 5, 0] = float("nan")
+    try:
+        ta._train_step(batch._replace(wavefield=wf), 1)
+        fail("a poisoned train step raised nothing with sanitize=True")
+    except FloatingPointError as e:
+        step_msg = str(e)
+    after = ta.optimizer.state_dict()["state"]
+    unchanged = all(torch.equal(v.detach(), before[k]) for k, v in iter_leaves(ta.params)) \
+        and all(torch.equal(after[i][k], v) for i, s in state.items() for k, v in s.items())
+    log(f"phase 16c Trainer(sanitize=True) clean step equal to sanitize=False: {clean}; "
+        f"poisoned step: {step_msg}; params and Adam state unchanged: {unchanged}")
+    if not (clean and unchanged):
+        fail("the sanitized train step changed a clean step, or a raising one changed state")
+    st = make_stencil_operator(GRID, GRID, cfg_kernel.geometry.pml_size,
+                               cfg_kernel.geometry.sigma_max, cfg_kernel.k0, order=4,
+                               device=dev)
+    k_sq = (cfg_kernel.source.omega / torch.tensor(sos96[0], device=dev)) ** 2
+    gm = dict(restart=20, max_restarts=10, tol=1e-6, device=dev)
+    reset_counts()
+    good = solve_helmholtz_checked(st, k_sq, solver96.source[0], **gm)
+    counts = hand_kernels()
+    plain_gm = solve_helmholtz(st, k_sq, solver96.source[0], **gm)
+    rn, rn_plain = good.residual_norms.cpu().numpy(), plain_gm.residual_norms.cpu().numpy()
+    bad = k_sq.clone()
+    bad[40, 40] = float("nan")
+    try:
+        solve_helmholtz_checked(st, bad, solver96.source[0], **gm)
+        fail("solve_helmholtz_checked took a NaN medium")
+    except FloatingPointError as e:
+        gm_msg = str(e)
+    log(f"phase 16c solve_helmholtz_checked (StencilPML order 4, {GRID}^2, restart 20 x "
+        f"10): residual {rn[0]:.4e} -> {rn[-1]:.4e}, unchecked {rn_plain[-1]:.4e}; "
+        f"launches {counts}; a NaN medium: {gm_msg}")
+    if not (rn[-1] <= rn[0] / 10 and np.allclose(rn, rn_plain, rtol=1e-6)
+            and counts[0] > 0 and not any(counts[1:])):
+        fail("the checked GMRES on the stencil did not converge as the unchecked one")
+    if "K2a (residual_planes" not in gm_msg:
+        fail("the NaN medium is not named by K2a")
+    out["sanitize"] = {"rollout_equal": same, "checked_s": chk_s, "plain_s": plain_s,
+                       "overhead": chk_s / plain_s, "k1_launches": steps * SANITIZE_ITERS,
+                       "k1_message": k1_msg, "train_clean_equal": clean,
+                       "train_message": step_msg, "gmres_residual": rn.tolist(),
+                       "k2a_launches": counts[0], "gmres_message": gm_msg}
+
+    # -- 16d: the dry run on one card ------------------------------------------
+    fn, args = dryrun.entry(device=dev)
+    got = fn(*args)
+    fn_cpu, args_cpu = dryrun.entry(device="cpu")
+    want = fn_cpu(*args_cpu)
+    entry_err = max(((g.cpu() - w).abs().max() / w.abs().max()).item()
+                    for g, w in zip(got, want))
+    log(f"phase 16d dryrun.entry() on the card against the CPU: max|err| / max|ref| "
+        f"{entry_err:.3e} (limit {DRYRUN_RTOL})")
+    if not entry_err <= DRYRUN_RTOL:
+        fail("dryrun.entry() on the card disagrees with the CPU")
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, device=dev)
+    try:
+        t = time.perf_counter()
+        dryrun.dryrun_multichip(1, device=dev)
+        dry_s = time.perf_counter() - t
+    finally:
+        torch.distributed.destroy_process_group()
+    out["dryrun"] = {"entry_rel_err": entry_err, "multichip_s": dry_s}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 16 done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -3010,6 +3291,9 @@ def main() -> int:
     # -- 15. distribution on NCCL at world size 1 --------------------------
     distribution = distribution_phase(dev, cfg, params, hand_kernel_counts)
 
+    # -- 16. skull, figures, sanitizers, dry run -----------------------------
+    last = last_slice_phase(dev, cfg_kernel, cfg_cudnn, hand_kernel_counts)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -3037,6 +3321,9 @@ def main() -> int:
             "12d solve_auto two-level 512^2": classical["auto_512"]["k1_launches"],
             "phase 13 serve": serving["burst"]["k1_launches"],
             **by_path3d(3),
+            f"16a skull {SKULL_GRID}^2 x {SKULL_ITERS}": last["skull"]["k1_launches"],
+            f"16c checked rollout {GRID}^2 x {SANITIZE_MAPS} x {SANITIZE_ITERS}":
+                last["sanitize"]["k1_launches"],
         },
     }, {
         "name": "packed_double_conv",
@@ -3078,7 +3365,8 @@ def main() -> int:
         "variant": row["variant"],  # the kernel's instance
         "launches_by_path": {
             **({"phase 10 GMRES 16 x 256^2": launches_k2,
-                "12e solve_helmholtz_deflated 256^2": classical["deflated"]["k2a_launches"]}
+                "12e solve_helmholtz_deflated 256^2": classical["deflated"]["k2a_launches"],
+                f"16c solve_helmholtz_checked {GRID}^2": last["sanitize"]["k2a_launches"]}
                if name == "residual_planes" else {}),
             **by_path3d(k2_index),
         },
@@ -3125,7 +3413,7 @@ def main() -> int:
                            "scipy_scale": float(scipy_scale),
                            "profile": gmres_profile},
                        "training": training, "classical": classical,
-                       "serving": serving, "solvers3d": solvers3d,
+                       "serving": serving, "solvers3d": solvers3d, "last_slice": last,
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

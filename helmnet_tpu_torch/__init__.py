@@ -13,9 +13,8 @@ points put their tensors on `cuda` unless the caller passes
 Importing the package initialises no CUDA context and builds no kernel:
 the kernels are built at their first launch.
 
-`__all__` holds the JAX package's public names that are ported, under
-the same names. Not ported yet: `checked` / `check_finite` /
-`debug_nans`.
+`__all__` holds the JAX package's public names, every one of them
+ported, under the same names.
 """
 
 __version__ = "0.1.0"
@@ -31,6 +30,7 @@ from .core.config import (  # noqa: F401
     load_settings,
 )
 from .core.meshes import make_mesh  # noqa: F401
+from .core.sanitize import check_finite, checked, debug_nans  # noqa: F401
 from .data.ellipses import make_dataset as make_ellipses_dataset  # noqa: F401
 from .models import hybridnet, hybridnet3d, resnet  # noqa: F401
 from .models.activations import get_activation  # noqa: F401
@@ -97,6 +97,9 @@ __all__ = [
     "TrainingConfig",
     "load_settings",
     "make_mesh",
+    "checked",
+    "check_finite",
+    "debug_nans",
     "make_ellipses_dataset",
     "hybridnet",
     "resnet",

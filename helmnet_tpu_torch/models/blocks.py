@@ -12,6 +12,13 @@ The convs are cuDNN calls (`F.conv2d`, `F.conv_transpose2d`), as XLA ran
 them on the TPU. An NHWC tensor permuted to NCHW is a channels-last
 tensor, so the permutes around each call move no data.
 
+Spatial partition: with `spatial` (distributed/spatial.Spatial) each
+conv takes and returns this rank's tile of its input and output. The
+zero padding becomes a halo exchange (`spatial.pad`: the neighbouring
+tiles' rows, zeros only at the domain edge), then the same cuDNN call
+with padding 0; a transposed conv runs on the halo-padded tile and is
+cropped to its own output rows.
+
 Precision: on the card TF32 is off (core/device.py), so these convs run in
 f32 under every precision name. The names are validated and kept for
 parity with the JAX package's config; 'default' is what selects the bf16
@@ -46,31 +53,54 @@ def _nhwc(y: torch.Tensor) -> torch.Tensor:
 
 
 def conv2d(params, x, *, stride: int = 1, padding: int = 0,
-           precision: str = "highest"):
+           precision: str = "highest", spatial=None):
     """2D convolution, NHWC x OIHW -> NHWC, torch Conv2d semantics."""
     resolve_precision(precision)
+    if spatial is not None:
+        # output j reads input rows stride*j - padding ... + k - 1
+        k = params["w"].shape[-1]
+        x = spatial.pad(x, padding, k - stride - padding)
+        padding = 0
     y = F.conv2d(_nchw(x), params["w"], params["b"], stride=stride,
                  padding=padding)
     return _nhwc(y)
 
 
+def _transposed_tile(fn, params, x, stride, padding, spatial):
+    """A transposed conv of this rank's tile: `fn` on the tile with its halo
+    (output o reads input rows (o + padding - k + 1)/stride ...
+    (o + padding)/stride), cropped to the tile's own output rows."""
+    k = params["w"].shape[-1]
+    lo = -((padding - k + 1) // stride)
+    hi = (padding - 1) // stride + 1
+    h, w = x.shape[1], x.shape[2]
+    y = fn(params, spatial.pad(x, lo, hi), stride=stride, padding=padding)
+    return y[:, stride * lo : stride * (lo + h), stride * lo : stride * (lo + w)]
+
+
 def conv_transpose2d(params, x, *, stride: int = 2, padding: int = 3,
-                     precision: str = "highest"):
+                     precision: str = "highest", spatial=None):
     """Torch ConvTranspose2d(k, stride, padding, output_padding=0) semantics:
     the JAX package's input-dilated conv (pad k - 1 - padding, flipped
     kernel) computes the same function."""
     resolve_precision(precision)
+    if spatial is not None:
+        return _transposed_tile(conv_transpose2d, params, x, stride, padding,
+                                spatial)
     y = F.conv_transpose2d(_nchw(x), params["w"], params["b"], stride=stride,
                            padding=padding)
     return _nhwc(y)
 
 
 def conv_transpose2d_subpixel(params, x, *, stride: int = 2, padding: int = 3,
-                              precision: str = "highest"):
+                              precision: str = "highest", spatial=None):
     """Same math as `conv_transpose2d` (k=8, s=2, p=3) as four k/2-tap convs
     at input resolution, one per output phase (a, b) = (row%2, col%2),
     interleaved afterwards (sub-pixel convolution)."""
     resolve_precision(precision)
+    if spatial is not None:
+        return _transposed_tile(conv_transpose2d_subpixel, params, x, stride,
+                                padding, spatial)
     w = params["w"]  # [I, O, k, k]
     k = w.shape[-1]
     if stride != 2 or k % 2:
@@ -165,11 +195,13 @@ def init_double_conv(generator: torch.Generator, cin: int, cout: int,
     }
 
 
-def double_conv(params, x, activation: str, precision: str = "highest"):
+def double_conv(params, x, activation: str, precision: str = "highest",
+                spatial=None):
     _, act = get_activation(activation)
-    h = conv2d(params["c1"], x, padding=1, precision=precision)
+    h = conv2d(params["c1"], x, padding=1, precision=precision, spatial=spatial)
     h = act(params["act"], h)
-    return conv2d(params["c2"], h, padding=1, precision=precision)
+    return conv2d(params["c2"], h, padding=1, precision=precision,
+                  spatial=spatial)
 
 
 def res_double_conv(params, x, activation: str, precision: str = "highest"):

@@ -22,6 +22,12 @@ fall back. `prepare_k1` converts the kernel's weights once
 rollout) and keeps them
 under `K1_KEY`; `apply` converts them in the call where they are
 missing. Otherwise (`'xla'`) the DoubleConvs are cuDNN convs in f32.
+
+`apply(..., spatial=)` runs on this rank's tiles of a grid split over the
+mesh axes y and x (distributed/spatial.py): x, out and every state are
+tiles, and every conv exchanges its halo. That is the `'xla'` path; K1
+pads each tile with zeros inside the kernel, so `'pallas'` mode refuses
+a spatial partition.
 """
 
 from __future__ import annotations
@@ -146,12 +152,19 @@ def apply(
     states: Sequence[torch.Tensor],
     *,
     cfg: ModelConfig,
+    spatial=None,
 ) -> tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     """Forward pass. x: [B, H, W, in_channels] NHWC. Returns
-    (out[B, H, W, 2], new_states)."""
+    (out[B, H, W, 2], new_states). With `spatial`, x, the states and the
+    outputs are this rank's tiles."""
     act = cfg.activation_function
     prec = cfg.precision
     use_kernel = uses_kernel(cfg)
+    if use_kernel and spatial is not None:
+        raise ValueError(
+            "double_conv_mode='pallas' cannot run on a grid split over the "
+            "mesh axes y and x: K1 pads each tile with zeros, not with its "
+            "neighbours' rows; use double_conv_mode='xla'")
 
     def dconv(p, *parts, post=None):
         if use_kernel:
@@ -160,7 +173,7 @@ def apply(
                 pw = p if post is None else dict(p, post=post)
             return fused_double_conv(pw, tuple(t.contiguous() for t in parts))
         t = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        h = double_conv(p, t, act, prec)
+        h = double_conv(p, t, act, prec, spatial=spatial)
         if post is not None:
             h = conv2d(post, h, precision=prec)
         return h
@@ -177,15 +190,18 @@ def apply(
         else:
             out = dconv(blk["conv_signal"], x)
         inner_signals.append(out)
-        x = conv2d(blk["down"], out, stride=2, padding=3, precision=prec)
+        x = conv2d(blk["down"], out, stride=2, padding=3, precision=prec,
+                   spatial=spatial)
 
     up = conv_transpose2d_subpixel if cfg.up_mode == "subpixel" else conv_transpose2d
     x = dconv(params["decode"][-1], x)
     for d in range(cfg.depth - 1, 0, -1):
-        x = up(params["up"][d], x, stride=2, padding=3, precision=prec)
+        x = up(params["up"][d], x, stride=2, padding=3, precision=prec,
+               spatial=spatial)
         x = dconv(params["decode"][d], x, inner_signals[d])
     # last decoder level with the 1x1 outc head folded in
-    x = up(params["up"][0], x, stride=2, padding=3, precision=prec)
+    x = up(params["up"][0], x, stride=2, padding=3, precision=prec,
+           spatial=spatial)
     out = dconv(params["decode"][0], x, inner_signals[0], post=params["outc"])
     return out, tuple(new_states)
 

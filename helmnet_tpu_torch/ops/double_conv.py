@@ -24,7 +24,8 @@ optional "post": {"w": [c_emit, cout, 1, 1], "b"}}`.
 - `fused_double_conv` takes the schema dict or a `PreparedDoubleConv`,
   launches the kernel for CUDA tensors, or raises. It takes the plain
   version only for tensors on the CPU. `fused_double_conv.launches`
-  counts its launches.
+  counts its launches. Under an active sanitizer (core/sanitize.py) its
+  output is checked as K1's when it returns.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..core import sanitize
 
 MAX_CHANNELS = 16
 MAX_PARTS = 2
@@ -246,6 +249,7 @@ def _vec(t: torch.Tensor, c: int, coff: int) -> int:
     return 1
 
 
+@sanitize.kernel("K1 (fused_double_conv, ops/double_conv.py)")
 def fused_double_conv(params, x, *, tile=None) -> torch.Tensor:
     """DoubleConv (+ optional 1x1 head) as one CUDA kernel launch.
 

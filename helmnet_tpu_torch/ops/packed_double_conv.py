@@ -26,7 +26,8 @@ sums, biases and PReLU are f32, as on the TPU. So its plain version is
 - `packed_double_conv(params, x)` takes the schema dict or a
   `PackedWeights`. Shapes the kernel does not take raise on every device.
   CUDA tensors launch the kernel or raise; CPU tensors take the plain
-  version. `packed_double_conv.launches` counts its launches.
+  version. `packed_double_conv.launches` counts its launches. Under an
+  active sanitizer (core/sanitize.py) its output is checked as K3's.
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from ..core import sanitize
 from .double_conv import _check, _parts, _ptr, _slope, _w1, double_conv_plain
 
 MAX_PARTS = 3
@@ -188,6 +190,7 @@ def prepare(params) -> PackedWeights:
     )
 
 
+@sanitize.kernel("K3 (packed_double_conv, ops/packed_double_conv.py)")
 def packed_double_conv(params, x, *, tile=None) -> torch.Tensor:
     """DoubleConv (+ optional 1x1 head) on packed tensors as one CUDA
     kernel launch. `params`: the schema dict or a `PackedWeights`; `x`: an

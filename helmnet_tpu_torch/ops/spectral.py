@@ -135,17 +135,20 @@ def make_operator(
 
 
 def _complex_matmul_left(m_r, m_i, u):
-    """(M_r + i M_i) applied along axis -3 of channel-pair u [..., H, W, 2]."""
+    """(M_r + i M_i) [R, H] applied along axis -3 of channel-pair u
+    [..., H, W, 2]; [..., R, W, 2]."""
     flat = u.reshape(*u.shape[:-2], -1)  # [..., H, W*2]
-    pr = torch.matmul(m_r, flat).reshape(u.shape)
-    pi = torch.matmul(m_i, flat).reshape(u.shape)
+    shape = u.shape[:-3] + (m_r.shape[0],) + u.shape[-2:]
+    pr = torch.matmul(m_r, flat).reshape(shape)
+    pi = torch.matmul(m_i, flat).reshape(shape)
     re = pr[..., 0] - pi[..., 1]
     im = pr[..., 1] + pi[..., 0]
     return torch.stack([re, im], dim=-1)
 
 
 def _complex_matmul_right(m_r, m_i, u):
-    """(M_r + i M_i) applied along axis -2 of channel-pair u [..., H, W, 2]."""
+    """(M_r + i M_i) [R, W] applied along axis -2 of channel-pair u
+    [..., H, W, 2]; [..., H, R, 2]."""
     ut = u.transpose(-1, -2)  # [..., H, 2, W]
     pr = torch.matmul(ut, m_r.T)
     pi = torch.matmul(ut, m_i.T)
@@ -154,10 +157,20 @@ def _complex_matmul_right(m_r, m_i, u):
     return torch.stack([re, im], dim=-1)
 
 
-def laplacian_matmul(op: SpectralPML, u: torch.Tensor) -> torch.Tensor:
-    """PML Laplacian via two dense complex matmuls. u: [..., H, W, 2]."""
-    lx = _complex_matmul_right(op.ax_r, op.ax_i, u)
-    ly = _complex_matmul_left(op.ay_r, op.ay_i, u)
+def laplacian_matmul(op: SpectralPML, u: torch.Tensor, spatial=None) -> torch.Tensor:
+    """PML Laplacian via two dense complex matmuls. u: [..., H, W, 2], or
+    with `spatial` (distributed/spatial.Spatial) this rank's tile of it:
+    u is all-gathered along the contracted axis, and each rank multiplies
+    its own rows of A_y and A_x."""
+    if spatial is None:
+        lx = _complex_matmul_right(op.ax_r, op.ax_i, u)
+        ly = _complex_matmul_left(op.ay_r, op.ay_i, u)
+        return lx + ly
+    rows, cols = spatial.rows, spatial.cols
+    ux = spatial.gather_axis(u, "x", u.dim() - 2)
+    uy = spatial.gather_axis(u, "y", u.dim() - 3)
+    lx = _complex_matmul_right(op.ax_r[cols], op.ax_i[cols], ux)
+    ly = _complex_matmul_left(op.ay_r[rows], op.ay_i[rows], uy)
     return lx + ly
 
 
@@ -193,10 +206,14 @@ def resolve_mode(mode: str, height: int, width: int) -> str:
     return "fft" if max(height, width) >= AUTO_FFT_MIN_SIZE else "matmul"
 
 
-def laplacian(op: SpectralPML, u: torch.Tensor, mode: str = "matmul") -> torch.Tensor:
+def laplacian(op: SpectralPML, u: torch.Tensor, mode: str = "matmul",
+              spatial=None) -> torch.Tensor:
+    """`spatial`: u is this rank's tile of a grid split over the mesh axes
+    y and x (distributed/spatial.py), in matmul mode only."""
     if mode == "auto" and not op.has_dense:
         mode = "fft"  # a dense-free operator only carries the fft tables
-    mode = resolve_mode(mode, u.shape[-3], u.shape[-2])
+    mode = resolve_mode(mode, u.shape[-3] * (spatial.ny if spatial else 1),
+                        u.shape[-2] * (spatial.nx if spatial else 1))
     if mode == "matmul":
         if not op.has_dense:
             raise ValueError(
@@ -204,8 +221,12 @@ def laplacian(op: SpectralPML, u: torch.Tensor, mode: str = "matmul") -> torch.T
                 "matmul mode needs the dense per-axis tables — rebuild with "
                 "dense=True or use mode='fft'"
             )
-        return laplacian_matmul(op, u)
+        return laplacian_matmul(op, u, spatial)
     elif mode == "fft":
+        if spatial is not None:
+            raise ValueError(
+                "a grid split over the mesh axes y and x needs the matmul "
+                "operator; the fft mode (1024^2 and up) is not partitioned")
         return laplacian_fft(op, u)
     raise ValueError(f"unknown operator mode {mode!r}")
 
@@ -216,12 +237,14 @@ def helmholtz_residual(
     k_sq: torch.Tensor,
     source: torch.Tensor,
     mode: str = "matmul",
+    spatial=None,
 ) -> torch.Tensor:
     """r = L u + k^2 u - s.
 
-    u, source: [..., H, W, 2]; k_sq: [..., H, W] (real, broadcast over re/im).
+    u, source: [..., H, W, 2]; k_sq: [..., H, W] (real, broadcast over re/im);
+    with `spatial`, this rank's tiles of them (`laplacian`).
     """
-    return laplacian(op, u, mode) + k_sq[..., None] * u - source
+    return laplacian(op, u, mode, spatial) + k_sq[..., None] * u - source
 
 
 # ---------------------------------------------------------------------------

@@ -37,7 +37,8 @@ and `stencil_to_csr`, the operator as a scipy matrix on the host.
 
 On the CPU the entry points take their plain versions; on a CUDA tensor
 they launch their kernel or raise. No CUDA tensor is ever sent to a plain
-version.
+version. Under an active sanitizer (core/sanitize.py) each entry point's
+outputs are checked under its kernel's name when it returns.
 """
 
 from __future__ import annotations
@@ -46,6 +47,7 @@ import ctypes
 
 import torch
 
+from ..core import sanitize
 from .stencil import StencilPML, laplacian_stencil
 
 RADII = (1, 2)  # stencil orders 2 and 4
@@ -305,6 +307,7 @@ def _launch(op: StencilPML, u_re, u_im, k_sq, s_re, s_im, out):
     return out
 
 
+@sanitize.kernel("K2a (residual_planes, ops/stencil_residual.py)")
 def residual_planes(op: StencilPML, u_re, u_im, k_sq, s_re=None, s_im=None,
                     *, out=None):
     """Fused stencil residual on split planes [B, H, W] -> (r_re, r_im).
@@ -327,6 +330,7 @@ def _tile_rows(h: int, tile_h: int) -> None:
         raise ValueError(f"H={h} must be divisible by tile_h={tile_h}")
 
 
+@sanitize.kernel("K2b (residual_planes_tiled, ops/stencil_residual.py)")
 def residual_planes_tiled(op: StencilPML, u_re, u_im, k_sq, s_re=None,
                           s_im=None, *, tile_h: int = 128, out=None):
     """Row-tiled stencil residual for large grids (K2b). `tile_h` is the
@@ -345,6 +349,7 @@ def residual_planes_tiled(op: StencilPML, u_re, u_im, k_sq, s_re=None,
     return out
 
 
+@sanitize.kernel("K2c (residual_planes_mxu, ops/stencil_residual.py)")
 def residual_planes_mxu(op: StencilPML, u_re, u_im, k_sq, s_re=None,
                         s_im=None, *, tile_h: int = 128, out=None):
     """Stencil residual whose TPU kernel did the x taps as a banded product

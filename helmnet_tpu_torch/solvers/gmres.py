@@ -264,30 +264,21 @@ def solve_helmholtz(
                        torch.view_as_real(res.checkpoints[0]), res.iterations[0])
 
 
-def _check_finite(name: str, t) -> None:
-    if isinstance(t, torch.Tensor) and (t.is_floating_point() or t.is_complex()):
-        if not bool(torch.isfinite(t).all()):
-            raise FloatingPointError(f"non-finite values (nan or inf) in {name}")
-
-
 def solve_helmholtz_checked(op, k_sq, source, **kw) -> GMRESResult:
-    """`solve_helmholtz` that raises FloatingPointError naming the
-    quantity when the operator, k_sq or the source holds a NaN or inf, or
-    when one is born in the solve (every field of the result is checked),
-    instead of returning checkpoints full of NaNs. The torch counterpart of
-    the JAX package's checkify-instrumented solve: it names the input or
-    output, not the primitive."""
-    dev = resolve_device(kw.get("device"))
-    tables = op.tables() if isinstance(op, StencilPML) else tuple(op)
-    for i, t in enumerate(tables):
-        _check_finite(f"operator table {i}", t)
-    k_sq, source = _on(k_sq, dev, torch.float32), _on(source, dev)
-    _check_finite("k_sq", k_sq)
-    _check_finite("source", source)
-    res = solve_helmholtz(op, k_sq, source, **kw)
-    for name, t in res._asdict().items():
-        _check_finite(f"the solve's {name}", t)
-    return res
+    """`solve_helmholtz` run under `core/sanitize.checked`: a NaN or inf
+    born anywhere in the solve (for example from a non-finite medium or
+    source) raises FloatingPointError naming the op, or the hand kernel
+    (K2 on a StencilPML on the card), and its location, instead of filling
+    the checkpoints with NaNs, as the JAX package's checkify-instrumented
+    solve does. The operator's tables are held to `check_finite` first."""
+    from ..core.sanitize import check_finite, checked
+
+    def solve():
+        check_finite(op.tables() if isinstance(op, StencilPML) else tuple(op),
+                     "the operator's tables")
+        return solve_helmholtz(op, k_sq, source, **kw)
+
+    return checked(solve)()
 
 
 def solve_helmholtz_batch(op, k_sq_batch, source_batch, **kw) -> GMRESResult:

@@ -11,6 +11,12 @@ config, operator, source and params and adds the robustness wrappers of
 
 Wavefields/residuals/sources are NHWC channel pairs [B, H, W, 2];
 sos maps are [B, H, W].
+
+`spatial=` (a distributed/spatial.Spatial) runs `single_step`, `n_steps`
+and `rollout` on this rank's tiles of a grid split over the mesh axes y
+and x: every field, source, sos map and state passed in and returned is
+a tile, the PML sigma maps are sliced to it, and `residual_rmse` is the
+global one.
 """
 
 from __future__ import annotations
@@ -54,20 +60,28 @@ def network_input(wavefield, residual, sigmas_hwc) -> torch.Tensor:
 
 
 def single_step(params, op: SpectralPML, source, k_sq, carry: SolverCarry,
-                *, cfg: Config) -> SolverCarry:
+                *, cfg: Config, spatial=None) -> SolverCarry:
     """One learned update: wf' = wf + f(...)/1e3; r' = L wf' + k^2 wf' - s."""
     arch = get_architecture(cfg.model.architecture)
-    sigmas_hwc = op.sigmas.permute(1, 2, 0)  # [H, W, 2]
-    net_in = network_input(carry.wavefield, carry.residual, sigmas_hwc)
-    d, new_states = arch.apply(params, net_in, carry.states, cfg=cfg.model)
+    sigmas = op.sigmas if spatial is None else spatial.tile(op.sigmas)
+    net_in = network_input(carry.wavefield, carry.residual,
+                           sigmas.permute(1, 2, 0))  # [H, W, 2]
+    extra = {} if spatial is None else {"spatial": spatial}
+    d, new_states = arch.apply(params, net_in, carry.states, cfg=cfg.model,
+                               **extra)
     wavefield = d / RESIDUAL_SCALE + carry.wavefield
-    residual = helmholtz_residual(op, wavefield, k_sq, source, cfg.operator_mode)
+    residual = helmholtz_residual(op, wavefield, k_sq, source, cfg.operator_mode,
+                                  spatial)
     return SolverCarry(wavefield, residual, new_states)
 
 
-def residual_rmse(residual: torch.Tensor) -> torch.Tensor:
-    """Per-sample RMSE over (H, W, 2)."""
-    return torch.sqrt(torch.mean(residual**2, dim=(1, 2, 3)))
+def residual_rmse(residual: torch.Tensor, spatial=None) -> torch.Tensor:
+    """Per-sample RMSE over (H, W, 2); with `spatial`, of the global
+    residual whose tile this is."""
+    if spatial is None:
+        return torch.sqrt(torch.mean(residual**2, dim=(1, 2, 3)))
+    total = spatial.sum(torch.sum(residual**2, dim=(1, 2, 3)))
+    return torch.sqrt(total / (spatial.height * spatial.width * residual.shape[3]))
 
 
 def _on(t, device) -> torch.Tensor:
@@ -87,6 +101,7 @@ def rollout(
     decimate: int = 1,
     init=None,
     device=None,
+    spatial=None,
 ):
     """Full inference rollout.
 
@@ -114,7 +129,8 @@ def rollout(
     if init is not None:  # warm start (host-chunked long rollouts)
         wavefield = _on(init[0], dev)
         states = tuple(_on(s, dev) for s in init[1])
-    residual = helmholtz_residual(op, wavefield, k_sq, source, cfg.operator_mode)
+    residual = helmholtz_residual(op, wavefield, k_sq, source, cfg.operator_mode,
+                                  spatial)
     carry = SolverCarry(wavefield, residual, states)
     track_best = "best" in collect
     best_wf = wavefield
@@ -125,9 +141,10 @@ def rollout(
 
     for _ in range(num_iterations // decimate):
         for _ in range(decimate):
-            carry = single_step(params, op, source, k_sq, carry, cfg=cfg)
+            carry = single_step(params, op, source, k_sq, carry, cfg=cfg,
+                                spatial=spatial)
             if "rmse" in collect or track_best:
-                rmse = residual_rmse(carry.residual)
+                rmse = residual_rmse(carry.residual, spatial)
             if "rmse" in collect:
                 rmses.append(rmse)
             if track_best:
@@ -169,6 +186,7 @@ def n_steps(
     cfg: Config,
     num_steps: int,
     remat: bool = False,
+    spatial=None,
 ):
     """Differentiable unrolled steps from an arbitrary solver state
     (reference n_steps, hybridnet.py:586-623), a Python loop of
@@ -185,7 +203,8 @@ def n_steps(
 
     def step(wavefield, residual, *states):
         c = single_step(params, op, source, k_sq,
-                        SolverCarry(wavefield, residual, states), cfg=cfg)
+                        SolverCarry(wavefield, residual, states), cfg=cfg,
+                        spatial=spatial)
         return (c.wavefield, c.residual, *c.states)
 
     ys = {"wavefields": [], "residuals": [], "states": []}

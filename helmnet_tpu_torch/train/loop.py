@@ -17,8 +17,15 @@ The reference training scheme (hybridnet.py:385-505):
 The network runs on cuDNN (`double_conv_mode='xla'`), as the JAX package
 trains on XLA convolutions: K1, the fused DoubleConv kernel, has no
 backward, and the JAX package cannot differentiate its Pallas kernel
-either, so `Trainer` refuses `'pallas'` mode. Its checkify sanitizer is
-not ported; asking for it raises NotImplementedError.
+either, so `Trainer` refuses `'pallas'` mode.
+
+`sanitize=True` is the JAX package's two-tier checked step
+(`helmnet_tpu/train/loop.py:298-346`): the step runs uninstrumented; when
+its loss or gradient norm is not finite, the forward is replayed under
+`core/sanitize.checked`, which raises naming the first op that made a
+NaN or inf, else the step raises saying the backward made it. The check
+comes after `backward()` and before the optimizer step, so a step that
+raises leaves the params and the Adam state as they were.
 
 Data parallelism (`mesh=`, a core/meshes.make_mesh mesh): every rank runs
 the same loop on the same seeds, so its replay buffer, draws and params
@@ -28,9 +35,18 @@ gradients to their mean and the loss to the global one, and applies the
 same Adam step on every rank; the evolved experiences are all-gathered
 before the write-back. So a data=N run equals the single-process run step
 for step, up to the order of the sums. Only the primary rank writes logs
-and checkpoints. A mesh that splits the grid (y or x above 1) raises
-NotImplementedError: that needs halo-exchanged convolutions through the
-whole network (ROADMAP.md, Queue A item 8).
+and checkpoints.
+
+A mesh that splits the grid (y or x above 1) partitions the UNet and the
+operator spatially (distributed/spatial.py), as GSPMD does for the JAX
+package: each rank computes on its tile of every field and of every
+level's hidden state, its convolutions exchange halos, and its operator
+GEMMs gather along the contracted axis. The loss and metrics are global
+means; each rank's gradient, a partial sum, is all-reduced over the whole
+mesh; the evolved fields and states are gathered before the write-back.
+The buffer, the draws and `validate` stay replicated on every rank. A
+grid whose UNet levels do not split evenly, the fft operator and
+architectures other than `custom_unet` are refused with a ValueError.
 
 Params are the port's nested dicts of leaf tensors; the trainer owns them
 (copies with `requires_grad`) and steps them in place with `torch.optim.Adam`.
@@ -50,10 +66,11 @@ from ..core.config import Config
 from ..core.device import resolve_device
 from ..core.meshes import data_sharding
 from ..distributed import multihost
+from ..distributed.spatial import Spatial
 from ..models.hybridnet import iter_leaves, map_leaves
 from ..models.registry import get_architecture
 from ..ops.source import line_source_map, point_source_map
-from ..ops.spectral import make_operator
+from ..ops.spectral import make_operator, resolve_mode
 from ..solvers.iterative import SolverCarry, n_steps, rollout
 from .device_buffer import fresh_experiences, make_device_buffer_fns
 from .replay import ExperienceBatch, ReplayBuffer
@@ -96,13 +113,17 @@ def make_optimizer(cfg: Config, params) -> torch.optim.Adam:
     )
 
 
-def apply_gradients(optimizer: torch.optim.Optimizer, gradient_clip: float):
+def apply_gradients(optimizer: torch.optim.Optimizer, gradient_clip: float,
+                    check=None):
     """One optimizer step on the gradients in the leaves' `.grad`. Returns
     the global norm of the raw gradients, before the clip (optax's
-    `global_norm(grads)`), as a device scalar."""
+    `global_norm(grads)`), as a device scalar. `check(grad_norm)`, when
+    given, runs before anything is changed and may raise."""
     leaves = [p for g in optimizer.param_groups for p in g["params"]
               if p.grad is not None]
     grad_norm = torch.sqrt(sum(torch.sum(p.grad**2) for p in leaves))
+    if check is not None:
+        check(grad_norm)
     if gradient_clip > 0:
         torch.nn.utils.clip_grad_value_(leaves, gradient_clip)
     optimizer.step()
@@ -114,10 +135,13 @@ def set_learning_rate(optimizer: torch.optim.Optimizer, lr: float) -> None:
         group["lr"] = lr
 
 
-def unrolled_loss(params, op, batch: ExperienceBatch, *, cfg: Config):
+def unrolled_loss(params, op, batch: ExperienceBatch, *, cfg: Config,
+                  spatial=None):
     """loss_amplify * mean(residuals^2) over `unrolling_steps` steps from the
     batch's experiences (tensors on one device), with autograd on.
-    Returns (loss, ys) as `n_steps` stacks them."""
+    Returns (loss, ys) as `n_steps` stacks them. With `spatial` the batch
+    holds this rank's tiles (`shard_experience`) and the loss is the mean
+    over the tile."""
     arch = get_architecture(cfg.model.architecture)
     t = cfg.training
     carry = SolverCarry(
@@ -127,18 +151,33 @@ def unrolled_loss(params, op, batch: ExperienceBatch, *, cfg: Config):
                               cfg.model),
     )
     _, ys = n_steps(params, op, batch.source, batch.k_sq, carry, cfg=cfg,
-                    num_steps=t.unrolling_steps, remat=t.remat)
+                    num_steps=t.unrolling_steps, remat=t.remat, spatial=spatial)
     return t.loss_amplify * torch.mean(ys["residuals"] ** 2), ys
 
 
-def shard_experience(mesh, batch: ExperienceBatch) -> ExperienceBatch:
-    """This rank's slice of an ExperienceBatch along the mesh's data axis,
-    on the mesh's device (the JAX package shards the fields over (data, y,
-    x) and the states and ages over data; the port splits only the batch).
-    Every rank passes the full global batch; `indices` stay global."""
+def shard_experience(mesh, batch: ExperienceBatch, spatial=None,
+                     cfg: Optional[Config] = None) -> ExperienceBatch:
+    """This rank's part of an ExperienceBatch, on the mesh's device: its
+    slice along the data axis and, with `spatial` (and the `cfg` whose
+    state layout the flat states follow), its tile of every field, of
+    k_sq and of every level of the flat states, which are then flattened
+    again in the tile's own layout. Every rank passes the full global
+    batch; `indices` stay global."""
     s = data_sharding(mesh)
-    return ExperienceBatch(
+    local = ExperienceBatch(
         *(multihost.put_global(a, s) for a in batch[:-1]), batch.indices)
+    if spatial is None:
+        return local
+    arch = get_architecture(cfg.model.architecture)
+    states = arch.unflatten_states(local.states, (spatial.height, spatial.width),
+                                   cfg.model)
+    return local._replace(
+        wavefield=spatial.tile(local.wavefield).contiguous(),
+        residual=spatial.tile(local.residual).contiguous(),
+        source=spatial.tile(local.source).contiguous(),
+        k_sq=spatial.tile(local.k_sq).contiguous(),
+        states=arch.flatten_states([spatial.tile(st) for st in states]),
+    )
 
 
 class PlateauScheduler:
@@ -193,17 +232,21 @@ class Trainer:
                 "every DoubleConv weight would get no gradient), and the JAX "
                 "package cannot differentiate its Pallas kernel either"
             )
-        if mesh is not None and any(
-                mesh.size(a) > 1 for a in mesh.axis_names if a != "data"):
-            raise NotImplementedError(
-                f"a mesh that splits the grid ({mesh.shape}) is not ported: "
-                "the port's Trainer is data-parallel only; spatial partition "
-                "of the UNet needs halo-exchanged convolutions through the "
-                "whole network (ROADMAP.md, Queue A item 8)")
-        if sanitize:
-            raise NotImplementedError(
-                "sanitize=True (the checkify-instrumented step) is not ported "
-                "to PyTorch yet")
+        g = cfg.geometry
+        self.spatial = None
+        if mesh is not None and (mesh.size("y") > 1 or mesh.size("x") > 1):
+            if cfg.model.architecture != "custom_unet":
+                raise ValueError(
+                    f"a mesh that splits the grid ({mesh.shape}) partitions "
+                    "the custom_unet only, not "
+                    f"{cfg.model.architecture!r}")
+            if resolve_mode(cfg.operator_mode, g.domain_size, g.domain_size) != "matmul":
+                raise ValueError(
+                    f"a mesh that splits the grid ({mesh.shape}) needs the "
+                    "matmul operator; the fft mode is not partitioned")
+            self.spatial = Spatial(mesh, g.domain_size, g.domain_size,
+                                   cfg.model.depth)
+        self.sanitize = sanitize
         self.cfg = cfg
         self.mesh = mesh
         self.device = (mesh.device if mesh is not None and device is None
@@ -217,7 +260,6 @@ class Trainer:
             params = self.arch.init_params(gen, cfg.model)
         self.params = map_leaves(params, lambda _, t: t.detach().to(
             self.device, torch.float32).clone().requires_grad_(True))
-        g = cfg.geometry
         self.height = self.width = g.domain_size
         self.op = make_operator(self.height, self.width, g.pml_size, g.sigma_max,
                                 cfg.k0, device=self.device)
@@ -303,47 +345,93 @@ class Trainer:
         """One optimizer step on a batch of tensors on the trainer's device.
         Returns (metrics, evolved): loss, rel_loss and the raw grad norm as
         device scalars; the batch after `pick` + 1 unrolled steps, detached,
-        with its per-sample mean(res^2)."""
-        mesh = self.mesh
-        if mesh is not None:
-            batch = shard_experience(mesh, batch)
+        with its per-sample mean(res^2). With a mesh every value is the
+        global one, on every rank."""
+        mesh, spatial = self.mesh, self.spatial
+        local = batch if mesh is None else shard_experience(mesh, batch, spatial,
+                                                            self.cfg)
         self.optimizer.zero_grad(set_to_none=True)
-        loss, ys = unrolled_loss(self.params, self.op, batch, cfg=self.cfg)
+        loss, ys = unrolled_loss(self.params, self.op, local, cfg=self.cfg,
+                                 spatial=spatial)
         loss.backward()
+        loss = loss.detach().clone()
         if mesh is not None:
-            self._mean_over_data([p.grad for _, p in iter_leaves(self.params)])
-        grad_norm = apply_gradients(self.optimizer, self.cfg.training.gradient_clip)
+            # equal shards and tiles: the global means are the ranks' means
+            self._mean_over_mesh([p.grad for _, p in iter_leaves(self.params)]
+                                 + [loss])
+        check = None
+        if self.sanitize:
+            check = lambda grad_norm: self._check_step(loss, grad_norm, batch)
+        grad_norm = apply_gradients(self.optimizer, self.cfg.training.gradient_clip,
+                                    check)
         with torch.no_grad():
+            res = ys["residuals"].detach()
             evolved = {
                 "wavefield": ys["wavefields"][pick].detach(),
                 "states": ys["states"][pick].detach(),
-                "residual": ys["residuals"][pick].detach(),
+                "residual": res[pick],
             }
-            evolved["res_sq_mean"] = torch.mean(evolved["residual"] ** 2,
-                                                dim=(1, 2, 3))
-            res = ys["residuals"].detach()
+            if spatial is None:
+                ms = torch.mean(res**2, dim=(2, 3, 4))  # [U, B]
+            else:
+                ms = spatial.sum(torch.sum(res**2, dim=(2, 3, 4))) / (
+                    self.height * self.width * res.shape[-1])
+            evolved["res_sq_mean"] = ms[pick]
             metrics = {
-                "loss": loss.detach(),
-                "rel_loss": torch.mean(torch.sqrt(torch.mean(res**2, dim=(2, 3, 4)))),
+                "loss": loss,
+                "rel_loss": torch.mean(torch.sqrt(ms)),
                 "grad_norm": grad_norm,
             }
             if mesh is not None:
-                # equal shards: the global means are the means of the ranks'
-                self._mean_over_data([metrics["loss"], metrics["rel_loss"]])
-                n, group = mesh.size("data"), mesh.group("data")
-                evolved = {k: multihost.all_gather_dim(v, group, n, 0)
-                           for k, v in evolved.items()}
+                self._mean_over_mesh([metrics["rel_loss"]])
+                evolved = self._gather_evolved(evolved)
         return metrics, evolved
 
-    def _mean_over_data(self, tensors) -> None:
-        """Replace each tensor by its mean over the mesh's data axis, with
+    def _check_step(self, loss, grad_norm, batch: ExperienceBatch) -> None:
+        """The sanitized step's test, before the optimizer step: a
+        non-finite loss or grad norm replays the forward on the global
+        batch under `checked` (one process, no collectives, so every rank
+        raises alike), which raises naming the op; a finite replay means
+        the backward made the NaN or inf."""
+        loss_v, gn = float(loss), float(grad_norm)
+        if np.isfinite(loss_v) and np.isfinite(gn):
+            return
+        from ..core.sanitize import checked
+
+        with torch.no_grad():
+            checked(unrolled_loss)(self.params, self.op, batch, cfg=self.cfg)
+        raise FloatingPointError(
+            f"non-finite training step (loss={loss_v}, grad_norm={gn}) with a "
+            "finite forward pass: the NaN/inf was produced in the BACKWARD "
+            "pass (e.g. a derivative at a non-differentiable point)")
+
+    def _gather_evolved(self, evolved: dict) -> dict:
+        """The global evolved experiences from every rank's part: tiles
+        gathered over y and x (the states level by level), then the batch
+        over data."""
+        spatial = self.spatial
+        if spatial is not None:
+            arch = self.arch
+            tile_states = arch.unflatten_states(
+                evolved["states"], (spatial.tile_h, spatial.tile_w), self.cfg.model)
+            evolved = dict(
+                evolved,
+                wavefield=spatial.gather(evolved["wavefield"]),
+                residual=spatial.gather(evolved["residual"]),
+                states=arch.flatten_states([spatial.gather(st) for st in tile_states]),
+            )
+        n, group = self.mesh.size("data"), self.mesh.group("data")
+        return {k: multihost.all_gather_dim(v, group, n, 0)
+                for k, v in evolved.items()}
+
+    def _mean_over_mesh(self, tensors) -> None:
+        """Replace each tensor by its mean over every rank of the mesh, with
         one all-reduce of their concatenation."""
-        group = self.mesh.group("data")
-        if group is None:
+        if not multihost.is_initialized() or multihost.process_count() == 1:
             return
         flat = torch.cat([t.reshape(-1) for t in tensors])
-        torch.distributed.all_reduce(flat, group=group)
-        flat /= self.mesh.size("data")
+        torch.distributed.all_reduce(flat)
+        flat /= multihost.process_count()
         start = 0
         for t in tensors:
             t.copy_(flat[start:start + t.numel()].view_as(t))

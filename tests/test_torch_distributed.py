@@ -23,8 +23,21 @@ the global results. Tolerances, from the JAX package's tests:
   written-back wavefield atol 1e-5.
 A two-process `cli/train --multihost` run ends as JAX's
 tests/test_multihost.py's does, and only rank 0 writes its checkpoint.
+
+The spatial partition (distributed/spatial.py) runs in the same 4 ranks:
+- every conv kind through `spatial=` on the (1, 2, 2), (1, 4, 1) and
+  (1, 1, 4) meshes, at tiles down to one row (halos wider than a tile),
+  against the one-process conv: output and gradients to 1e-5 of the
+  reference's largest value (f32 sums in another order);
+- a (data=1, y=2, x=2) train step and epoch against the single-process
+  port Trainer with the data-parallel bounds above, and against JAX's
+  `Trainer(mesh=make_mesh(ParallelConfig(1, 2, 2), devices[:4]))` with
+  the bounds held against JAX's data=2 mesh;
+- a 4-step rollout on that mesh against the single-process rollout
+  (wavefield atol 1e-5 * max|ref|, rmse rtol 1e-5).
 """
 
+import dataclasses
 import json
 import os
 import socket
@@ -88,6 +101,8 @@ def inputs(tmp_path_factory):
         "slab_s": _rng(112).standard_normal((2, 24, 24, 24, 2)).astype(f32),
         "slab_norm_res": _rng(12).standard_normal((2, 16, 16, 16, 2)).astype(f32),
         "maps": make_dataset(8, n, seed=0),
+        "rollout_maps": make_dataset(4, n, seed=4),
+        "rollout_source": _rng(8).standard_normal((4, n, n, 2)).astype(f32),
     }
     # the train step's batch: a fixed draw of a buffer filled by JAX's
     # Trainer (the port's fills the same, tests/test_torch_training.py)
@@ -126,14 +141,11 @@ def port_single(inputs):
     return workers.train_results(None, inputs[0])
 
 
-@pytest.fixture(scope="module")
-def jax_data2(inputs):
-    """JAX's Trainer on a data=2 mesh of the virtual devices: the step on
-    the stored batch and one epoch from a filled buffer."""
-    inp = inputs[0]
+def _jax_mesh_run(inp, mesh):
+    """JAX's Trainer on `mesh` of the virtual devices: the step on the
+    stored batch and one epoch from a filled buffer."""
     jcfg = tiny_config()
     params = trained_params(jcfg)
-    mesh = jmake_mesh(JParallel(data=2))
     jt = jloop.Trainer(jcfg, params=jax.tree.map(jnp.asarray, params), mesh=mesh)
     batch = JBatch(*(jnp.asarray(inp[f"batch_{k}"]) for k in FIELDS),
                    jnp.asarray(inp["batch_indices"]))
@@ -153,6 +165,17 @@ def jax_data2(inputs):
         "epoch_wavefield": je.buffer.wavefield.copy(),
         "epoch_iteration": je.buffer.iteration.copy(),
     }
+
+
+@pytest.fixture(scope="module")
+def jax_data2(inputs):
+    return _jax_mesh_run(inputs[0], jmake_mesh(JParallel(data=2)))
+
+
+@pytest.fixture(scope="module")
+def jax_spatial(inputs):
+    return _jax_mesh_run(inputs[0], jmake_mesh(JParallel(data=1, y=2, x=2),
+                                               devices=jax.devices()[:4]))
 
 
 def _global(arr, mesh, spec):
@@ -263,15 +286,14 @@ def test_worker_config_is_the_tiny_config():
     assert workers.tiny_config() == port_config(tiny_config())
 
 
-@pytest.mark.parametrize("data", [2, 4])
-def test_data_parallel_step_matches(data, ops, train2, port_single, jax_data2):
-    got = {k[len(f"data{data}_"):]: v for k, v in
-           (ops if data == 4 else train2).items() if k.startswith(f"data{data}_")}
-    one = port_single
+def _run(results, prefix):
+    return {k[len(prefix):]: v for k, v in results.items() if k.startswith(prefix)}
+
+
+def _step_matches(got, one, ref):
     assert float(got["step_loss"]) == pytest.approx(one["step_loss"], rel=1e-5)
     np.testing.assert_allclose(got["step_outc_b"], one["step_outc_b"], atol=1e-6)
     np.testing.assert_allclose(got["step_wavefield"], one["step_wavefield"], atol=1e-5)
-    ref = jax_data2
     assert float(got["step_loss"]) == pytest.approx(ref["loss"], rel=1e-4)
     assert float(got["step_rel_loss"]) == pytest.approx(ref["rel_loss"], rel=1e-4)
     assert float(got["step_grad_norm"]) == pytest.approx(ref["grad_norm"], rel=1e-3)
@@ -280,19 +302,66 @@ def test_data_parallel_step_matches(data, ops, train2, port_single, jax_data2):
                                    atol=1e-5 * np.abs(ref[key]).max(), err_msg=key)
 
 
-@pytest.mark.parametrize("data", [2, 4])
-def test_data_parallel_epoch_matches(data, ops, train2, port_single, jax_data2):
-    got = {k[len(f"data{data}_"):]: v for k, v in
-           (ops if data == 4 else train2).items() if k.startswith(f"data{data}_")}
-    one = port_single
+def _epoch_matches(got, one, ref):
     assert float(got["epoch_loss"]) == pytest.approx(one["epoch_loss"], rel=1e-5)
     assert int(got["epoch_new_sos"]) == one["epoch_new_sos"]
     np.testing.assert_array_equal(got["epoch_iteration"], one["epoch_iteration"])
     np.testing.assert_allclose(got["epoch_wavefield"], one["epoch_wavefield"], atol=1e-5)
-    ref = jax_data2
     assert float(got["epoch_loss"]) == pytest.approx(ref["epoch_loss"], rel=1e-3)
     np.testing.assert_array_equal(got["epoch_iteration"], ref["epoch_iteration"])
     np.testing.assert_allclose(got["epoch_wavefield"], ref["epoch_wavefield"], atol=1e-5)
+
+
+@pytest.mark.parametrize("data", [2, 4])
+def test_data_parallel_step_matches(data, ops, train2, port_single, jax_data2):
+    _step_matches(_run(ops if data == 4 else train2, f"data{data}_"), port_single,
+                  jax_data2)
+
+
+@pytest.mark.parametrize("data", [2, 4])
+def test_data_parallel_epoch_matches(data, ops, train2, port_single, jax_data2):
+    _epoch_matches(_run(ops if data == 4 else train2, f"data{data}_"), port_single,
+                   jax_data2)
+
+
+# ---------------------------------------------------------------------------
+# the spatial partition
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mesh", ["1x2x2", "1x4x1", "1x1x4"])
+@pytest.mark.parametrize("kind", [k[0] for k in workers.CONV_KINDS])
+def test_halo_pad_matches_one_process_conv(kind, mesh, ops):
+    """Output, input gradient and weight gradient (columns) of each tile
+    size (rows), down to one-row tiles whose halos span several tiles."""
+    errs = ops[f"halo_{kind}_{mesh}"]
+    assert errs.shape[1] == 4 and np.all(errs < 1e-5), errs
+
+
+def test_spatial_step_matches(ops, port_single, jax_spatial):
+    _step_matches(_run(ops, "spatial_"), port_single, jax_spatial)
+
+
+def test_spatial_epoch_matches(ops, port_single, jax_spatial):
+    _epoch_matches(_run(ops, "spatial_"), port_single, jax_spatial)
+
+
+def test_spatial_rollout_matches(ops, inputs):
+    from helmnet_tpu_torch.ops.spectral import make_operator
+    from helmnet_tpu_torch.solvers.iterative import rollout
+    from helmnet_tpu_torch.weights import load_params_npz
+
+    inp, cfg = inputs[0], workers.tiny_config()
+    g = cfg.geometry
+    op = make_operator(g.domain_size, g.domain_size, g.pml_size, g.sigma_max,
+                       cfg.k0, device="cpu")
+    ref = rollout(load_params_npz(workers.NPZ, cfg, device="cpu"), op,
+                  inp["rollout_source"], inp["rollout_maps"], cfg=cfg,
+                  num_iterations=4, device="cpu")
+    want = ref["wavefield"].numpy()
+    np.testing.assert_allclose(ops["rollout_wavefield"], want,
+                               atol=1e-5 * np.abs(want).max())
+    np.testing.assert_allclose(ops["rollout_rmse"], ref["rmse"].numpy(), rtol=1e-5)
 
 
 def _free_port() -> int:
@@ -346,10 +415,67 @@ def test_cli_multihost_two_processes(tmp_path):
     assert not (tmp_path / "logs1").exists()
 
 
-def test_trainer_refuses_a_spatial_mesh():
-    """A mesh that splits the grid names the ROADMAP item that will port it."""
+def _fake_mesh(sizes):
+    """Rank 0 of a mesh of `sizes` with no process group: enough for every
+    check made before a step."""
+    return Mesh(("data", "y", "x"), sizes, 0, (None,) * 3, torch.device("cpu"))
+
+
+def test_uneven_level_refused():
+    """A UNet level that does not split evenly over y or x raises before
+    any step, naming the level and the sizes (GSPMD would pad it): 96^2 at
+    depth 4 has a 6-row level 4, not divisible by y=4."""
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+
     cfg = port_config(tiny_config())
-    for sizes in ((1, 2, 1), (2, 1, 2)):
-        mesh = Mesh(("data", "y", "x"), sizes, 0, (None,) * 3, torch.device("cpu"))
-        with pytest.raises(NotImplementedError, match="Queue A item 8"):
-            tloop.Trainer(cfg, mesh=mesh, device="cpu")
+    cfg = cfg.replace(geometry=dataclasses.replace(cfg.geometry, domain_size=96))
+    with pytest.raises(ValueError, match="UNet level 4 of the 96x96 grid has H = 6"):
+        tloop.Trainer(cfg, mesh=_fake_mesh((1, 4, 1)), device="cpu")
+    with pytest.raises(ValueError, match="level 3 of the 32x32 grid has W = 4"):
+        Spatial(_fake_mesh((1, 1, 8)), 32, 32, 4)
+    Spatial(_fake_mesh((1, 2, 2)), 96, 96, 4)  # 6 rows over 2 ranks split
+
+
+def test_spatial_mesh_refuses_fft_and_other_architectures():
+    cfg = port_config(tiny_config())
+    with pytest.raises(ValueError, match="needs the matmul operator"):
+        tloop.Trainer(cfg.replace(operator_mode="fft"), mesh=_fake_mesh((1, 2, 1)),
+                      device="cpu")
+    resnet = cfg.replace(model=dataclasses.replace(cfg.model, architecture="resnet"))
+    with pytest.raises(ValueError, match="partitions the custom_unet only"):
+        tloop.Trainer(resnet, mesh=_fake_mesh((1, 1, 2)), device="cpu")
+
+
+def test_spatial_rollout_refuses_pallas_mode():
+    """K1 pads each tile with zeros inside the kernel, so 'pallas' mode
+    refuses a spatial partition."""
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+    from helmnet_tpu_torch.models import hybridnet as th
+    from helmnet_tpu_torch.weights import load_params_npz
+
+    cfg = workers.tiny_config()
+    model = dataclasses.replace(cfg.model, double_conv_mode="pallas",
+                                precision="default")
+    sp = Spatial(_fake_mesh((1, 2, 1)), 32, 32, 4)
+    x = torch.zeros((1, 16, 32, model.in_channels))
+    states = th.init_states(1, (16, 32), model)
+    with pytest.raises(ValueError, match="cannot run on a grid split"):
+        th.apply(load_params_npz(workers.NPZ, cfg, device="cpu"), x, states,
+                 cfg=model, spatial=sp)
+
+
+def test_dryrun_two_ranks():
+    """`python -m helmnet_tpu_torch.dryrun --ranks 2` (two gloo ranks on
+    this CPU) prints every OK line of the JAX package's dry run."""
+    env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
+    proc = subprocess.run(
+        [sys.executable, "-m", "helmnet_tpu_torch.dryrun", "--ranks", "2"],
+        capture_output=True, text=True, env=env, timeout=300, cwd=ROOT)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    for line in ("entry() run OK: [(1, 96, 96, 2), (1, 96, 96, 2)]",
+                 "[dryrun] mesh {'data': 1, 'y': 2, 'x': 1} on 2 ranks (cpu)",
+                 "[dryrun] sharded train_step OK", "[dryrun] halo-exchange stencil "
+                 "residual OK", "[dryrun] distributed slab-FFT laplacian OK",
+                 "[dryrun] sharded rollout OK", "[dryrun] 3D z-slab residual OK",
+                 "[dryrun] 3D z-slab OVERLAP residual OK", "dryrun_multichip OK"):
+        assert line in proc.stdout, (line, proc.stdout)

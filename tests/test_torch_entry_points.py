@@ -25,8 +25,8 @@ from helmnet_tpu.train.checkpoint import save_params_npz
 from helmnet_tpu_torch.core import profiling as tprof
 from tests.torch_solver_cases import R2C_NPZ, one_torch_thread  # noqa: F401
 
-# JAX public names the port does not have yet: sanitize
-NOT_PORTED = {"checked", "check_finite", "debug_nans"}
+# JAX public names the port does not have: none left
+NOT_PORTED = set()
 
 
 def _quiet(fn, *args):

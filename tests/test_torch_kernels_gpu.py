@@ -678,6 +678,57 @@ def test_k1_inside_a_served_batch(cuda):
     np.testing.assert_allclose(out["rmse"][:4], cpu["rmse"][:, 0].numpy(), rtol=0.05)
 
 
+# -- the sanitizers on the card: the hand kernels report to them ----------------
+
+
+def test_checked_rollout_equals_unchecked(cuda):
+    """`checked` around a 'pallas' rollout (K1, 14 launches a step) changes
+    no bit of it, under cuDNN's deterministic algorithms."""
+    import dataclasses
+
+    from helmnet_tpu_torch.core.config import Config
+    from helmnet_tpu_torch.core.sanitize import checked
+    from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
+
+    cfg = Config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, double_conv_mode="pallas"))
+    params = _r2c(cfg, cuda)
+    solver = IterativeSolver(cfg, params=params, device=cuda)
+    sos = (1.0 + 0.4 * np.random.default_rng(16).random((2, 96, 96))).astype(np.float32)
+
+    def run():
+        return rollout(params, solver.op, solver.source.expand(2, -1, -1, -1), sos,
+                       cfg=cfg, num_iterations=4, device=cuda)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = run()
+        fused_double_conv.launches = 0
+        chk = checked(run)()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert fused_double_conv.launches == 14 * 4
+    for k in ("wavefield", "residual", "rmse"):
+        assert torch.equal(plain[k], chk[k]), k
+
+
+def test_nan_in_k1_named_by_k1(cuda):
+    """A NaN in K1's input reaches the kernel out of the dispatcher's sight
+    (and K1's PReLU maps it to 0, so its output may be finite); the
+    wrapper reports it under K1's name."""
+    from helmnet_tpu_torch.core.sanitize import checked
+
+    rng = np.random.default_rng(17)
+    p = _params(rng, 6, 8, 8, cuda)
+    (x,) = _inputs(rng, 2, 32, 32, (6,), cuda)
+    x[1, 7, 9, 0] = float("nan")
+    with pytest.raises(FloatingPointError, match=r"nan passed to K1 \(fused_double_conv"):
+        checked(fused_double_conv)(p, x)
+    x[1, 7, 9, 0] = 0.0
+    assert bool(torch.isfinite(checked(fused_double_conv)(p, x)).all())
+
+
 # -- the 3D path: no hand kernel, cuDNN convs and the einsum/FFT operator -------
 
 

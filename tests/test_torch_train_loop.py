@@ -26,7 +26,6 @@ from helmnet_tpu.core.config import Config as JConfig
 from helmnet_tpu.models.registry import get_architecture as jget_architecture
 from helmnet_tpu.train.checkpoint import load_params_npz as jax_load_params_npz
 from helmnet_tpu_torch.core import config as tconf
-from helmnet_tpu_torch.core.meshes import Mesh
 from helmnet_tpu_torch.data.ellipses import make_dataset
 from helmnet_tpu_torch.models import hybridnet as th
 from helmnet_tpu_torch.train import checkpoint as tckpt
@@ -277,16 +276,14 @@ def test_pallas_mode_refused_before_anything_is_made(params, monkeypatch):
     assert "JAX package cannot differentiate" in str(err.value)
 
 
-SPATIAL_MESH = Mesh(("data", "y", "x"), (2, 2, 1), 0, (None,) * 3, torch.device("cpu"))
-
-
-@pytest.mark.parametrize("kw", [{"mesh": SPATIAL_MESH}, {"sanitize": True}],
-                         ids=["mesh", "sanitize"])
-def test_unported_options_raise(params, kw):
-    """A mesh that splits the grid (y or x above 1; the data axis alone is
-    ported) and the sanitizer raise."""
-    with pytest.raises(NotImplementedError, match="not ported"):
-        trainer(params, **kw)
+@pytest.mark.parametrize("mode", ["pallas"])
+def test_unported_options_raise(params, mode):
+    """The one option the port's Trainer refuses: K1's mode, which has no
+    backward (the spatial mesh and the sanitizer are ported)."""
+    cfg = tiny_config()
+    cfg = cfg.replace(model=dataclasses.replace(cfg.model, double_conv_mode=mode))
+    with pytest.raises(ValueError, match="no backward"):
+        trainer(params, cfg=cfg)
 
 
 def test_trainer_raises_without_a_card(monkeypatch):

@@ -4,9 +4,11 @@ gathered to an npz that the test holds against the JAX package.
 
     spawn(task, world, inputs_npz, out_npz)
 
-`task` is "ops" (the halo, slab-FFT and z-slab residuals and norms, and a
-data=4 train step and epoch on 4 ranks) or "train" (the train step and
-epoch alone, at data=world).
+`task` is "ops" (on 4 ranks: the halo, slab-FFT and z-slab residuals and
+norms, a data=4 train step and epoch, the spatial partition's halo pads
+against one-process convs, a (data=1, y=2, x=2) train step and epoch and
+a 4-step rollout on that mesh) or "train" (the train step and epoch
+alone, at data=world).
 """
 
 from __future__ import annotations
@@ -73,6 +75,88 @@ def train_results(mesh, inp) -> dict:
     }
 
 
+# (name, kernel width, stride, padding, tile sizes): every conv kind of
+# the UNet (models/blocks.py) at tiles down to one row, so the deep
+# levels' halos (3 rows for the down conv, 2 for the up convs) span more
+# than one tile
+CONV_KINDS = (("conv3x3", 3, 1, 1, (1, 2, 4)), ("down", 8, 2, 3, (2, 4)),
+              ("up_transpose", 8, 2, 3, (1, 2)), ("up_subpixel", 8, 2, 3, (1, 2)))
+HALO_MESHES = ((1, 2, 2), (1, 4, 1), (1, 1, 4))
+
+
+def halo_results() -> dict:
+    """Each conv kind on each spatial mesh, through `spatial=` on tiles
+    against the one-process conv on the whole tensor: the largest
+    differences of the output and of the gradients of a random linear
+    function of it (input and weights), each over the reference's size."""
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+    from helmnet_tpu_torch.models import blocks
+
+    out = {}
+    for sizes in HALO_MESHES:
+        mesh = make_mesh(ParallelConfig(*sizes), device="cpu")
+        for name, k, stride, pad, tiles in CONV_KINDS:
+            up = name.startswith("up")
+            fn = {"conv3x3": blocks.conv2d, "down": blocks.conv2d,
+                  "up_transpose": blocks.conv_transpose2d,
+                  "up_subpixel": blocks.conv_transpose2d_subpixel}[name]
+            errs = []
+            for t in tiles:
+                rng = np.random.default_rng(t)
+                h, w = t * sizes[1], t * sizes[2]
+                x = torch.tensor(rng.standard_normal((2, h, w, 3)), dtype=torch.float32)
+                wshape = (3, 4, k, k) if up else (4, 3, k, k)
+                params = {"w": torch.tensor(rng.standard_normal(wshape), dtype=torch.float32),
+                          "b": torch.tensor(rng.standard_normal(4), dtype=torch.float32)}
+                sp = Spatial(mesh, h, w, 0)
+                results = []
+                for spatial in (None, sp):
+                    p = {a: v.clone().requires_grad_(True) for a, v in params.items()}
+                    xin = (x if spatial is None else sp.tile(x)).clone().requires_grad_(True)
+                    y = fn(p, xin, stride=stride, padding=pad, spatial=spatial)
+                    if spatial is None:
+                        g = torch.tensor(np.random.default_rng(99).standard_normal(y.shape),
+                                         dtype=torch.float32)
+                    torch.sum(y * (g if spatial is None else sp.tile(g))).backward()
+                    if spatial is None:
+                        results.append((y, xin.grad, p["w"].grad, p["b"].grad))
+                    else:
+                        dw = sp.sum(torch.cat([p["w"].grad.reshape(-1), p["b"].grad]))
+                        results.append((sp.gather(y.detach()), sp.gather(xin.grad),
+                                        dw[:p["w"].numel()].view_as(p["w"]),
+                                        dw[p["w"].numel():]))
+                errs.append([float((a - b).abs().max() / b.abs().max())
+                             for a, b in zip(results[1], results[0])])
+            out[f"halo_{name}_{'x'.join(map(str, sizes))}"] = np.asarray(errs)
+    return out
+
+
+def spatial_rollout(inp) -> dict:
+    """4 learned steps on the (data=1, y=2, x=2) mesh, each rank on its
+    tiles; the gathered wavefield and the (global) rmse."""
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+    from helmnet_tpu_torch.ops.spectral import make_operator
+    from helmnet_tpu_torch.solvers.iterative import rollout
+    from helmnet_tpu_torch.weights import load_params_npz
+
+    cfg = tiny_config()
+    g = cfg.geometry
+    mesh = make_mesh(ParallelConfig(1, 2, 2), device="cpu")
+    sp = Spatial(mesh, g.domain_size, g.domain_size, cfg.model.depth)
+    op = make_operator(g.domain_size, g.domain_size, g.pml_size, g.sigma_max,
+                       cfg.k0, device="cpu")
+    out = rollout(load_params_npz(NPZ, cfg, device="cpu"), op,
+                  sp.tile(torch.from_numpy(inp["rollout_source"])),
+                  sp.tile(torch.from_numpy(inp["rollout_maps"])), cfg=cfg,
+                  num_iterations=4, device="cpu", spatial=sp)
+    return {"rollout_wavefield": sp.gather(out["wavefield"]).numpy(),
+            "rollout_rmse": out["rmse"].numpy()}
+
+
 def ops_results(inp) -> dict:
     """The sharded residuals and norms on 4 ranks, gathered."""
     from helmnet_tpu_torch.core.config import ParallelConfig
@@ -129,6 +213,11 @@ def ops_results(inp) -> dict:
     # data-parallel training on all 4 ranks, 2 hosts of 2
     mesh = make_mesh(ParallelConfig(data=4), device="cpu", ranks_per_host=2)
     out.update({f"data4_{k}": v for k, v in train_results(mesh, inp).items()})
+    # the spatial partition: halo pads, a train step and epoch, a rollout
+    out.update(halo_results())
+    mesh = make_mesh(ParallelConfig(data=1, y=2, x=2), device="cpu")
+    out.update({f"spatial_{k}": v for k, v in train_results(mesh, inp).items()})
+    out.update(spatial_rollout(inp))
     return out
 
 

@@ -28,7 +28,11 @@ and checks them all:
    2e-2 * max|ref|, the JAX package's bound in
    tests/test_pallas_pixconv.py), and bit-equal to the same call with the
    weights converted in the call; each with the output tile `tile_for`
-   chose;
+   chose; and the NaN gate (`nan_gate`) at decode[0]+outc at each output
+   tile: a NaN planted at a seeded pixel and channel gives NaN exactly
+   where the plain version (cuDNN off: the direct sums) has one, its
+   5 x 5 receptive field over every channel, and atol 2e-2 * max|ref|
+   elsewhere;
 4. main path: trained weights (trained_models/round1_best_epoch890.npz)
    and the first 32 maps of datasets/splitted_96/testset.npz, 500
    iterations in 'pallas' mode. Exactly 14 x 500 kernel launches, finite
@@ -49,7 +53,10 @@ and checks them all:
    its TFLOP/s, share of the bound and time at the other tile; 6b: the
    same at the 14 calls of a g = 32 and a g = 64 step at 256^2 (mid and
    out widths 256 and 512: K3's wide instances, and the 128-wide ones at
-   the state convs), each call timed in a graph of 10;
+   the state convs), each call timed in a graph of 10; in 6 and 6b the
+   NaN gate at the first call of each instance (128-wide, wide) at each
+   of its tiles (the packed block-diagonal weights carry the NaN to every
+   problem of the pack, in the kernel as in the plain version);
 7. the packed path: `rollout_packed` on the 16 maps of
    datasets/eval256/maps.npz, g = 16, 50 iterations (bench.py:234) in
    'pallas' mode. Exactly 14 x 50 K3 launches and no K1 launch, finite
@@ -2118,18 +2125,63 @@ def solvers3d_phase(dev, hand_kernels) -> dict:
     log(f"phase 14 done in {out['seconds']:.1f} s")
     return out
 
-def k3_calls(tag: str, kparams, model, n: int, gen, dev, iters: int = 50) -> list:
+def nan_gate(tag: str, label: str, launch, params, parts, seed: int) -> dict:
+    """The NaN gate of one K1 or K3 instance: a NaN planted at a seeded
+    pixel and channel of one input part (in a copy); `launch(parts)`, the
+    kernel, must give NaN exactly where the plain version does, which must
+    be the NaN's 5 x 5 receptive field over every channel (with packed
+    block-diagonal weights, every problem of the pack: NaN * 0 = NaN), and
+    agree within atol 2e-2 * max|ref| elsewhere. The plain version runs
+    with cuDNN off (im2col and a GEMM: the direct sums); its NaN count with
+    cuDNN on, whose algorithms may transform whole tiles, is logged beside."""
+    from helmnet_tpu_torch.ops.double_conv import double_conv_plain
+
+    rng = np.random.default_rng(seed)
+    part = int(rng.integers(len(parts)))
+    b, y, x, c = (int(rng.integers(n)) for n in parts[part].shape)
+    parts = tuple(t.clone() for t in parts)
+    parts[part][b, y, x, c] = float("nan")
+    with torch.backends.cudnn.flags(enabled=False):
+        ref = double_conv_plain(params, parts)
+    cudnn_nans = int(torch.isnan(double_conv_plain(params, parts)).sum())
+    got = launch(parts)
+    torch.cuda.synchronize()
+    field = torch.zeros_like(ref, dtype=torch.bool)
+    field[b, max(y - 2, 0):y + 3, max(x - 2, 0):x + 3] = True
+    nan_got, nan_ref = torch.isnan(got), torch.isnan(ref)
+    masks = torch.equal(nan_got, nan_ref) and torch.equal(nan_ref, field)
+    keep = ~field
+    err = (got[keep] - ref[keep]).abs().max().item()
+    atol = KERNEL_RTOL * ref[keep].abs().max().item()
+    ok = masks and err <= atol
+    log(f"phase {tag} NaN gate {label}: NaN at part {part} (sample {b}, pixel "
+        f"({y}, {x}), channel {c}): kernel {int(nan_got.sum())} NaNs, plain "
+        f"{int(nan_ref.sum())} (cuDNN on {cudnn_nans}), receptive field "
+        f"{int(field.sum())}; masks {'equal' if masks else 'DIFFER'}; elsewhere "
+        f"max|err| {err:.3e} (atol {atol:.3e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"the NaN gate fails for {label} (phase {tag})")
+    return dict(phase=tag, instance=label, at=[part, b, y, x, c],
+                kernel_nans=int(nan_got.sum()), plain_nans=int(nan_ref.sum()),
+                plain_cudnn_nans=cudnn_nans, field=int(field.sum()),
+                max_abs_err=err, atol=atol)
+
+
+def k3_calls(tag: str, kparams, model, n: int, gen, dev, gates: list,
+             iters: int = 50) -> list:
     """K3 against its plain version at the 14 calls of one packed step
     (batch 1 at n^2, seeded random inputs, the weights `prepare_k3` made),
-    within atol 2e-2 * max|ref|; then each call timed (a CUDA graph of
-    `iters` calls) at its tile and at the instance's other tile, beside its
-    plain version, the cuDNN f32 DoubleConv and its bound."""
+    within atol 2e-2 * max|ref|; at the first call of each instance (128-wide
+    or wide), the NaN gate at each of its tiles, appended to `gates`; then
+    each call timed (a CUDA graph of `iters` calls) at its tile and at the
+    instance's other tile, beside its plain version, the cuDNN f32
+    DoubleConv and its bound."""
     from helmnet_tpu_torch.models.blocks import conv2d, double_conv
     from helmnet_tpu_torch.ops.double_conv import double_conv_plain
     from helmnet_tpu_torch.ops.packed_double_conv import (packed_double_conv, tile_for,
                                                           tiles_for)
 
-    rows = []
+    rows, gated = [], set()
     for name, pw, n_, cins in packed_step_calls(kparams, model, n):
         parts = tuple(torch.randn((1, n_, n_, c), generator=gen, device=dev)
                       for c in cins)
@@ -2144,6 +2196,13 @@ def k3_calls(tag: str, kparams, model, n: int, gen, dev, iters: int = 50) -> lis
             f"{KERNEL_RTOL * scale:.3e}) {'ok' if ok else 'FAIL'}")
         if not ok:
             fail(f"K3 disagrees with its plain version at {name} (phase {tag})")
+        if pw.wide not in gated:
+            gated.add(pw.wide)
+            for t in tiles_for(pw.cmp, pw.cop, pw.ce):
+                gates.append(nan_gate(
+                    tag, f"K3 {'wide' if pw.wide else '128-wide'} {name} tile "
+                    f"{t[0]}x{t[1]}", lambda xs, t=t: packed_double_conv(pw, xs, tile=t),
+                    pw.params, parts, seed=1600 + len(gates)))
         fp = pw.params
         lib_p = dict(fp, c1={"w": torch.cat(fp["c1"]["w"], dim=1), "b": fp["c1"]["b"]})
 
@@ -2739,6 +2798,12 @@ def main() -> int:
             fail(f"prepared and converted weights differ at {name}")
         cases.append(dict(name=name, grid=n, cins=list(cins), params=p, pw=pw,
                           parts=parts, out=got, max_abs_err=err, tile=list(tile)))
+    # the NaN gate at one call (two parts and the head) at each output tile
+    c = cases[-1]
+    nan_gates = [nan_gate("3", f"K1 {c['name']} tile {t[0]}x{t[1]}",
+                          lambda xs, t=t: fused_double_conv(c["pw"], xs, tile=t),
+                          c["params"], c["parts"], seed=1600 + i)
+                 for i, t in enumerate(K1_TILES)]
 
     # -- 4. main path --------------------------------------------------------
     sos = np.load("datasets/splitted_96/testset.npz")["maps"][:BATCH]
@@ -2850,13 +2915,13 @@ def main() -> int:
     # -- 6. K3 against its plain version, and its times --------------------
     g, n_pack = PACK_G, PACK_GRID
     kparams = prepare_k3(pack_params(params, g), model, g, inc_splits=(2, 2, 2))
-    k3_rows = k3_calls("6", kparams, model, n_pack, gen, dev)
+    k3_rows = k3_calls("6", kparams, model, n_pack, gen, dev, nan_gates)
     # 6b: the wide instances at the 14 calls of a g = 32 and a g = 64 step
     k3_wide = {}
     for gw in WIDE_STEPS:
         kw_params = prepare_k3(pack_params(params, gw), model, gw, inc_splits=(2, 2, 2))
         k3_wide[gw] = k3_calls(f"6b g={gw}", kw_params, model, n_pack, gen, dev,
-                               WIDE_ITERS)
+                               nan_gates, WIDE_ITERS)
         del kw_params
 
     # -- 7. the packed path ----------------------------------------------------
@@ -3385,7 +3450,7 @@ def main() -> int:
         with open(args.out, "w") as fh:
             json.dump({"device": kind, "nvidia_smi": smi, "ptxas": resources,
                        "build_log": built.log,
-                       "calls": rows,
+                       "calls": rows, "nan_gates": nan_gates,
                        "rollout_seconds": rollouts, "gridpoints_per_s": gps,
                        "first_rollout_s": first_s, "build_s": built.seconds,
                        "profile": profiles, "k3_calls": k3_rows,

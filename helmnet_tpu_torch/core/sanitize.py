@@ -19,11 +19,13 @@ The hand kernels (K1, K3, K2) are bound through ctypes and write their
 outputs through raw pointers, out of the dispatcher's sight. Their
 wrappers are decorated with `kernel(name)`: under an active sanitizer the
 wrapper's own ops are not checked one by one; its inputs are checked for
-a NaN before the launch (K1's PReLU, `fmaxf(v, 0) + a fminf(v, 0)`, maps
-a NaN to 0, so a NaN could enter K1 and leave it unseen) and its outputs
-when it returns, so a NaN that reaches or is born in a kernel (or its
-plain version on the CPU) is named by the kernel. Without an active
-sanitizer the decorator costs one look at the dispatch-mode stack.
+a NaN before the launch and its outputs when it returns, so a NaN that
+reaches or is born in a kernel (or its plain version on the CPU) is named
+by the kernel. The kernels keep a NaN as the JAX kernels do (K1's and
+K3's PReLU propagates it), so the output check alone would report a NaN
+passed in as one the kernel made; the input check names the kernel it
+entered. Without an active sanitizer the decorator costs one look at the
+dispatch-mode stack.
 
 Everything here is opt-in: each checked op adds an `isfinite` reduction
 and a host sync. `Trainer(..., sanitize=True)`, `solve_helmholtz_checked`,
@@ -165,7 +167,7 @@ def kernel(name: str):
                 outer = mode.muted == 1
                 if outer and any(_inexact(t) and bool(torch.isnan(t).any())
                                  for t in _tensors((args, kwargs))):
-                    # a kernel may launder a NaN (K1's PReLU maps it to 0)
+                    # name the kernel a NaN entered, before it spreads
                     raise FloatingPointError(f"nan passed to {name} at {_where()}")
                 out = fn(*args, **kwargs)
                 kind = _verdict(out, (args, kwargs)) if outer else None

@@ -101,6 +101,15 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// PReLU as the TPU kernel computes it, max(v, 0) + slope * min(v, 0) (ReLU
+// at slope 0), keeping a NaN as jnp.maximum and jnp.minimum do: fmaxf and
+// fminf return the operand that is not a NaN, so without the test a NaN
+// would leave conv1 as 0. For every other v, +-inf and +-0 included, this
+// is the fmaxf/fminf form bit for bit.
+__device__ __forceinline__ float prelu(float v, float slope) {
+  return isnan(v) ? v : fmaxf(v, 0.f) + slope * fminf(v, 0.f);
+}
+
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
@@ -487,8 +496,8 @@ packed_double_conv_kernel(const __grid_constant__ Args a) {
         if (inside) {
           v0 = acc1[i][4 * j + 2 * h] + (c < a.cm ? __ldg(a.b1 + c) : 0.f);
           v1 = acc1[i][4 * j + 2 * h + 1] + (c + 1 < a.cm ? __ldg(a.b1 + c + 1) : 0.f);
-          v0 = fmaxf(v0, 0.f) + slope * fminf(v0, 0.f);
-          v1 = fmaxf(v1, 0.f) + slope * fminf(v1, 0.f);
+          v0 = prelu(v0, slope);
+          v1 = prelu(v1, slope);
         }
         *reinterpret_cast<uint32_t*>(hs + r * C::HSTR + c) = pack_bf16(v0, v1);
       }
@@ -797,8 +806,8 @@ wide_double_conv_kernel(const __grid_constant__ Args a, int cmp, int cop) {
           if (inside) {
             v0 = acc1[i][4 * j + 2 * h] + (c < a.cm ? __ldg(a.b1 + c) : 0.f);
             v1 = acc1[i][4 * j + 2 * h + 1] + (c + 1 < a.cm ? __ldg(a.b1 + c + 1) : 0.f);
-            v0 = fmaxf(v0, 0.f) + slope * fminf(v0, 0.f);
-            v1 = fmaxf(v1, 0.f) + slope * fminf(v1, 0.f);
+            v0 = prelu(v0, slope);
+            v1 = prelu(v1, slope);
           }
           *reinterpret_cast<uint32_t*>(hs + r * hstr + c) = pack_bf16(v0, v1);
         }

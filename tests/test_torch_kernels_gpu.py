@@ -382,6 +382,84 @@ def test_k3_wrapper_rejects(cuda):
 
 
 # ---------------------------------------------------------------------------
+# A NaN in K1's and K3's input: kept where the plain version keeps it
+# ---------------------------------------------------------------------------
+
+
+def _packed_params(rng, g, cins, cmid, cout, c_emit, device, act=True):
+    """One problem's DoubleConv lifted to g-packed block-diagonal weights
+    (`pack_params`), c1 split per input part of g * cins[k] channels."""
+    from helmnet_tpu_torch.models.packed import _split_packed_rows, pack_params
+
+    p = pack_params(_params(rng, sum(cins), cmid, cout, device, act=act,
+                            c_emit=c_emit), g)
+    p["c1"]["w"] = _split_packed_rows(p["c1"]["w"], cins, g)
+    return p
+
+
+def _nan_field(shape, b, y, x, device):
+    """The NaN mask of a DoubleConv output for a NaN at (b, y, x): its
+    5 x 5 receptive field, every channel."""
+    field = torch.zeros(shape, dtype=torch.bool, device=device)
+    field[b, max(y - 2, 0):y + 3, max(x - 2, 0):x + 3] = True
+    return field
+
+
+@pytest.mark.parametrize(
+    "kernel,g,tile,act",
+    [
+        ("K1", None, (16, 16), True),
+        ("K1", None, (8, 8), True),
+        ("K1", None, (8, 8), False),    # ReLU: slope 0, the same epilogue
+        ("K3", 16, (8, 16), True),      # the 128-wide instance
+        ("K3", 16, (4, 8), True),
+        ("K3", 16, (4, 8), False),
+        ("K3", 32, (8, 8), True),       # the wide instances
+        ("K3", 32, (4, 8), True),
+        ("K3", 64, (4, 8), True),
+    ],
+)
+def test_nan_mask_equals_plain(cuda, kernel, g, tile, act):
+    """A NaN planted at a seeded pixel and channel of one input part: the
+    kernel's output is NaN exactly where the plain version's is (the 5 x 5
+    receptive field, every channel; for K3's block-diagonal packed weights,
+    every problem of the pack, as NaN * 0 = NaN) and within atol
+    TOL * max|ref| elsewhere. The plain version runs with cuDNN off (im2col
+    and a GEMM, the direct sums): an algorithm that transforms whole tiles
+    (Winograd, FFT) may carry a NaN over its tile."""
+    from helmnet_tpu_torch.ops import packed_double_conv as k3
+
+    rng = np.random.default_rng(31 + (g or 0) + tile[0] + act)
+    cins = (8, 2)
+    if kernel == "K1":
+        p = _params(rng, sum(cins), 8, 8, cuda, act=act, c_emit=2)
+        parts = _inputs(rng, 2, 40, 56, cins, cuda)
+        launch = lambda xs: fused_double_conv(p, xs, tile=tile)
+    else:
+        p = _packed_params(rng, g, cins, 8, 8, 2, cuda, act=act)
+        cins = tuple(g * c for c in cins)
+        pw = k3.prepare(p)
+        assert tile in k3.tiles_for(pw.cmp, pw.cop, pw.ce)
+        parts = _inputs(rng, 2, 20, 36, cins, cuda)
+        launch = lambda xs: k3.packed_double_conv(pw, xs, tile=tile)
+    part = int(rng.integers(len(parts)))
+    b, h, w, c = parts[part].shape
+    b, y, x, c = (int(rng.integers(n)) for n in (b, h, w, c))
+    parts = tuple(t.clone() for t in parts)
+    parts[part][b, y, x, c] = float("nan")
+    with torch.backends.cudnn.flags(enabled=False):
+        ref = double_conv_plain(p, parts)
+    got = launch(parts)
+    torch.cuda.synchronize()
+    field = _nan_field(ref.shape, b, y, x, cuda)
+    assert torch.equal(torch.isnan(ref), field)
+    assert torch.equal(torch.isnan(got), field)
+    keep = ~field
+    np.testing.assert_allclose(got[keep].cpu().numpy(), ref[keep].cpu().numpy(),
+                               atol=TOL * ref[keep].abs().max().item())
+
+
+# ---------------------------------------------------------------------------
 # K2a-c: the fused stencil residual (ops/stencil_residual.py)
 # ---------------------------------------------------------------------------
 
@@ -554,6 +632,42 @@ def test_k2c_launches_the_one_kernel(cuda):
     assert not hasattr(load_library(), "hn_stencil_residual_mma")
 
 
+@pytest.mark.parametrize("kind", ["planes", "tiled", "mxu"])
+@pytest.mark.parametrize("layout", ["split", "pairs"])
+@pytest.mark.parametrize("field", ["u", "k_sq", "s"])
+def test_k2_keeps_a_nan(cuda, kind, layout, field):
+    """K2 has no min or max: a NaN in u, k^2 or s reaches the residual
+    exactly where the plain version of the taps puts one (about u's NaN
+    the stencil's cross, at k^2's or s's the point alone), and the finite
+    entries keep their bits. K2c's own plain version takes the x taps as a
+    banded product, whose zeros carry u's NaN along its whole row (NaN * 0,
+    as in the TPU's banded form); its kernel runs the taps, so its mask is
+    the taps' and lies inside its plain version's."""
+    from helmnet_tpu_torch.ops import stencil_residual as sr
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+
+    rng = np.random.default_rng(23)
+    b, h, w = 2, 64, 128
+    op = make_stencil_operator(h, w, 8, 2.0, 1.0, order=4, device=cuda)
+    u, s, k_sq = _k2_fields(rng, b, h, w, cuda)
+    at = (int(rng.integers(b)), int(rng.integers(h)), int(rng.integers(w)))
+    if field == "k_sq":
+        k_sq[at] = float("nan")
+    else:
+        {"u": u, "s": s}[field][at + (int(rng.integers(2)),)] = float("nan")
+    args = _k2_operands(layout, u, s, k_sq, True, False)
+    entry, plain = _k2_entry(kind, h // 2)
+    got = entry(op, *args)
+    ref = sr.residual_planes_plain(op, *args)
+    own = plain(op, *args)
+    torch.cuda.synchronize()
+    assert any(bool(torch.isnan(r).any()) for r in ref)
+    for g, r, o in zip(got, ref, own):
+        assert torch.equal(torch.isnan(g), torch.isnan(r))
+        assert not bool((torch.isnan(g) & ~torch.isnan(o)).any())
+        assert torch.equal(g[~torch.isnan(r)], r[~torch.isnan(r)])
+
+
 def _r2c(cfg, device):
     from pathlib import Path
 
@@ -714,9 +828,10 @@ def test_checked_rollout_equals_unchecked(cuda):
 
 
 def test_nan_in_k1_named_by_k1(cuda):
-    """A NaN in K1's input reaches the kernel out of the dispatcher's sight
-    (and K1's PReLU maps it to 0, so its output may be finite); the
-    wrapper reports it under K1's name."""
+    """A NaN in K1's input reaches the kernel out of the dispatcher's
+    sight; the wrapper checks the inputs and names K1 as where the NaN
+    entered. The kernel keeps the NaN (its PReLU propagates it, as JAX's
+    does), so the unchecked output holds it too."""
     from helmnet_tpu_torch.core.sanitize import checked
 
     rng = np.random.default_rng(17)
@@ -725,6 +840,7 @@ def test_nan_in_k1_named_by_k1(cuda):
     x[1, 7, 9, 0] = float("nan")
     with pytest.raises(FloatingPointError, match=r"nan passed to K1 \(fused_double_conv"):
         checked(fused_double_conv)(p, x)
+    assert bool(torch.isnan(fused_double_conv(p, x)).any())
     x[1, 7, 9, 0] = 0.0
     assert bool(torch.isfinite(checked(fused_double_conv)(p, x)).all())
 

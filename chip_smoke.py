@@ -16,7 +16,8 @@ tpu_r2c weights, serving (`SolverService`, `cli/serve`) with the
 remaining 2D entry points, the 3D solvers with the tpu3d_a and tpu3d_het
 weights, the distribution modules on NCCL, and the skull solve at
 512^2, `produce_figures`' compute path, the sanitizers and the dry run,
-and checks them all:
+and the 1024^2 train step and K1 rollout on the fft operator (the split
+grid's single-card end), and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -252,7 +253,26 @@ and checks them all:
    on the order-4 stencil at 96^2 equal to the unchecked solve (221 K2a
    launches) and a NaN medium named by K2a; (d) `dryrun.entry()` on the
    card within 1e-5 of the CPU, and `dryrun_multichip(1)` on an NCCL
-   group of world size 1.
+   group of world size 1;
+17. the grid split over y and x, its single-card end at 1024^2
+   (`split_grid_phase`; the multi-rank behaviour is held against the JAX
+   package on gloo ranks by tests/test_torch_spatial_cases.py): (a)
+   `helmholtz_residual` in fft against matmul mode at 4 x 1024^2 within
+   1e-5 max|ref|, each mode's device ms, and `laplacian(mode='fft',
+   spatial=)` on an NCCL mesh of world size 1 with its input gradient
+   against the unsplit `laplacian_fft` (1e-5 max|ref|) and the autograd
+   all-to-all the identity both ways; (b) the 1024^2 train step of
+   TRAINING1024.md (experiments/base.json at 1024^2, the source location
+   scaled, buffer 24, batch 2 x 2 unrolled, remat, lr 3e-4, device
+   buffer, `make_dataset(24, 1024, seed=42)`, 'auto' resolving to fft) for
+   3 steps: every loss finite and step 1 within rel 1e-4 of the same step
+   with the matmul operator (cuDNN deterministic), wall per step, peak
+   memory and a 2-step profile, no hand-kernel launch; (c) a rollout of 4
+   maps x 1024^2 x 50 with the tpu_r2c weights in 'pallas' mode on the
+   fft operator: K1 against its plain version at the 14 calls of a 1024^2
+   step (each timed beside its plain version and bound), exactly 14 x 50
+   K1 launches, the first 4 rmse within rtol 0.05 of a cuDNN f32 forward,
+   gridpoints/s and a 10-step profile.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -364,6 +384,13 @@ FIG_MAPS, FIG_ITERS = 2, 200  # 16b: produce_figures' flow at the default 96^2
 FIG_LINF = 1e-3  # 16b: learned l_inf against the f64 truth, PML-cropped
 SANITIZE_MAPS, SANITIZE_ITERS = 8, 10  # 16c
 DRYRUN_RTOL = 1e-5  # 16d: dryrun.entry() on the card against the CPU
+SPLIT_GRID, SPLIT_OP_BATCH = 1024, 4  # 17: the grid where 'auto' takes the fft operator
+SPLIT_RTOL = 1e-5  # 17a: * max|ref|, fft against matmul, split against unsplit
+SPLIT_TRAIN = dict(buffer_size=24, train_batch_size=2, unrolling_steps=2, remat=True,
+                   learning_rate=3e-4)  # 17b: TRAINING1024.md's run
+SPLIT_TRAIN_STEPS = 3
+SPLIT_TRAIN_RTOL = 1e-4  # 17b: step 1 against its matmul twin (phase 11's bound)
+SPLIT_MAPS, SPLIT_ITERS, SPLIT_PROFILE_STEPS = 4, 50, 10  # 17c
 
 
 def log(msg: str) -> None:
@@ -2707,6 +2734,203 @@ def last_slice_phase(dev, cfg_kernel, cfg_cudnn, hand_kernels) -> dict:
     return out
 
 
+def split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernels) -> dict:
+    """Phase 17: the single-card end of the grid split over y and x at
+    1024^2 (its multi-rank behaviour is held against the JAX package on
+    gloo ranks by tests/test_torch_spatial_cases.py): (a) the fft operator
+    against the matmul one, and `laplacian(mode='fft', spatial=)` on a
+    world-size-1 NCCL mesh with its gradient against the unsplit one; (b)
+    the 1024^2 train step of TRAINING1024.md (fft operator, device buffer)
+    against its matmul twin; (c) a 1024^2 rollout with the tpu_r2c weights
+    on K1. Every gate failure exits; the returned dict holds what was
+    measured. `hand_kernels()` reads the launch counts of K2a, K2b, K2c, K1
+    and K3."""
+    import socket
+
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.data.ellipses import make_dataset
+    from helmnet_tpu_torch.distributed import multihost
+    from helmnet_tpu_torch.distributed.spatial import Spatial, _AxisAllToAll
+    from helmnet_tpu_torch.ops.double_conv import (double_conv_plain, fused_double_conv,
+                                                   prepare, tile_for)
+    from helmnet_tpu_torch.ops.source import point_source_map
+    from helmnet_tpu_torch.ops.spectral import (helmholtz_residual, laplacian,
+                                                laplacian_fft, make_operator)
+    from helmnet_tpu_torch.solvers.iterative import rollout
+    from helmnet_tpu_torch.train.loop import Trainer
+    from helmnet_tpu_torch.weights import load_params_npz
+
+    t0 = time.perf_counter()
+    n, out = SPLIT_GRID, {}
+    g = cfg.geometry
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    rel = lambda a, b: (a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+
+    # -- 17a: the fft operator at 1024^2 ------------------------------------------
+    reset_counts()
+    op = make_operator(n, n, g.pml_size, g.sigma_max, cfg.k0, device=dev)
+    b = SPLIT_OP_BATCH
+    u, k_sq, src = rnd(b, n, n, 2), 0.5 + rnd(b, n, n).abs(), rnd(b, n, n, 2)
+    r_fft = helmholtz_residual(op, u, k_sq, src, "fft")
+    r_mm = helmholtz_residual(op, u, k_sq, src, "matmul")
+    modes_err = rel(r_fft, r_mm)
+    ms = {mode: cuda_ms(lambda mode=mode: helmholtz_residual(op, u, k_sq, src, mode), 10,
+                        graph=False) for mode in ("fft", "matmul", "fft", "matmul")}
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, device=dev)
+    try:
+        backend = torch.distributed.get_backend()
+        mesh = make_mesh(ParallelConfig(), device=dev)
+        sp = Spatial(mesh, n, n, 0)
+        weights = rnd(b, n, n, 2)
+        grads = []
+        for spatial in (None, sp):
+            x = u.clone().requires_grad_(True)
+            lap = (laplacian_fft(op, x) if spatial is None
+                   else laplacian(op, x, "fft", spatial=spatial))
+            torch.sum(lap * weights).backward()
+            grads.append((lap.detach(), x.grad))
+        split_err, grad_err = rel(grads[1][0], grads[0][0]), rel(grads[1][1], grads[0][1])
+        # the autograd all-to-all itself: at world size 1 the identity, both ways
+        x = u.clone().requires_grad_(True)
+        y = _AxisAllToAll.apply(x, mesh, "y", 2, 1)
+        y.backward(weights)
+        a2a_equal = bool(torch.equal(y, u) and torch.equal(x.grad, weights))
+    finally:
+        torch.distributed.destroy_process_group()
+    log(f"phase 17a helmholtz_residual {b} x {n}^2: fft against matmul max|err| / "
+        f"max|ref| {modes_err:.3e} (limit {SPLIT_RTOL}); device ms fft {ms['fft']:.4f}, "
+        f"matmul {ms['matmul']:.4f}; laplacian(mode='fft', spatial=) on a {backend} mesh "
+        f"of world size 1 against laplacian_fft {split_err:.3e}, its input gradient "
+        f"{grad_err:.3e} (limit {SPLIT_RTOL}); the autograd all-to-all the identity "
+        f"both ways: {a2a_equal}")
+    if backend != "nccl" or not max(modes_err, split_err, grad_err) <= SPLIT_RTOL:
+        fail("the fft operator disagrees at 1024^2 (against matmul or on the mesh)")
+    if not a2a_equal:
+        fail("the autograd all-to-all is not the identity at world size 1")
+    out["operator"] = {"fft_vs_matmul": modes_err, "device_ms": ms,
+                       "split_vs_unsplit": split_err, "split_grad": grad_err}
+    del u, k_sq, src, r_fft, r_mm, weights, grads, x, y
+
+    # -- 17b: the 1024^2 train step (TRAINING1024.md) -----------------------------
+    scale = n / g.domain_size
+    loc = tuple(int(round(c * scale)) for c in cfg.source.location)
+    cfg_t = cfg.replace(
+        geometry=dataclasses.replace(g, domain_size=n),
+        source=dataclasses.replace(cfg.source, location=loc),
+        training=dataclasses.replace(cfg.training, **SPLIT_TRAIN))
+    maps = make_dataset(SPLIT_TRAIN["buffer_size"], n, seed=42)
+    losses, walls = {}, {}
+    with deterministic_cudnn():
+        for mode, steps in (("auto", SPLIT_TRAIN_STEPS), ("matmul", 1)):
+            tr = Trainer(cfg_t.replace(operator_mode=mode), params=params, device=dev,
+                         device_buffer=True)
+            tr.fill_buffer(maps)
+            maxiter = tr.max_allowed_iterations()
+            torch.cuda.reset_peak_memory_stats()
+            runs = []
+            for _ in range(steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                metrics = tr.device_step(maxiter)
+                runs.append((float(metrics["loss"]), time.perf_counter() - t))
+            losses[mode] = [r[0] for r in runs]
+            walls[mode] = [r[1] for r in runs]
+            if mode == "auto":
+                peak_gib = torch.cuda.max_memory_allocated() / 2**30
+                prof = profile_steps(
+                    lambda k: [tr.device_step(maxiter) for _ in range(k)], 2)
+            del tr
+    gap = abs(losses["matmul"][0] - losses["auto"][0]) / abs(losses["matmul"][0])
+    launched = hand_kernels()
+    log(f"phase 17b Trainer at {n}^2 (experiments/base.json, source {loc}, buffer "
+        f"{SPLIT_TRAIN['buffer_size']}, batch {SPLIT_TRAIN['train_batch_size']} x "
+        f"{SPLIT_TRAIN['unrolling_steps']} unrolled, remat, device buffer; 'auto' is fft): "
+        f"losses {losses['auto']}, step 1 against matmul rel diff {gap:.3e} (limit "
+        f"{SPLIT_TRAIN_RTOL}); wall per step {[round(w, 4) for w in walls['auto']]} s; "
+        f"peak memory {peak_gib:.3f} GiB; profile of 2 steps: wall "
+        f"{prof['wall_ms_per_step']:.3f} ms, device {prof['device_ms_per_step']:.3f} ms "
+        f"a step, busy share {prof['busy_share']:.4f}; hand-kernel launches {launched}")
+    if not (all(np.isfinite(losses["auto"])) and gap <= SPLIT_TRAIN_RTOL):
+        fail("the 1024^2 train step is not finite or disagrees with its matmul twin")
+    if any(launched):
+        fail(f"hand kernels launched on the 17a-b path: {launched}")
+    out["train"] = {"losses": losses["auto"], "matmul_loss": losses["matmul"][0],
+                    "rel_diff": gap, "wall_s": walls["auto"], "peak_gib": peak_gib,
+                    "profile": prof}
+    del maps
+
+    # -- 17c: a 1024^2 rollout with the tpu_r2c weights on K1 ---------------------
+    r2c = load_params_npz(R2C_NPZ, cfg_kernel, device=dev)
+    cfg_r = cfg_kernel.replace(geometry=cfg_t.geometry, source=cfg_t.source)
+    cfg_x = cfg_cudnn.replace(geometry=cfg_t.geometry, source=cfg_t.source)
+    sos = make_dataset(SPLIT_MAPS, n, seed=42)
+    s = cfg_r.source
+    source = point_source_map(n, n, loc, s.amplitude, s.phase, s.omega)[None]
+    steps = 14  # K1 launches a learned step (phase 4)
+    model = cfg_r.model
+    rows = []
+    for name, p, m, cins in step_calls(r2c, model, n):
+        parts = tuple(rnd(SPLIT_MAPS, m, m, c) for c in cins)
+        pw = prepare(p)
+        ref_out = double_conv_plain(p, parts)
+        got_out = fused_double_conv(pw, parts)
+        torch.cuda.synchronize()
+        err = (got_out - ref_out).abs().max().item()
+        scale_ = ref_out.abs().max().item()
+        if not (bool(torch.isfinite(got_out).all()) and err <= KERNEL_RTOL * scale_):
+            fail(f"K1 disagrees with its plain version at {name}, {SPLIT_MAPS} x {m}^2")
+        flops, ops_ms, bytes_ms, _ = bound(p, parts, got_out)
+        rows.append(dict(name=name, grid=m, tile=list(tile_for(SPLIT_MAPS, m, m)),
+                         max_abs_err=err, ms=cuda_ms(lambda: fused_double_conv(pw, parts), 10),
+                         plain_ms=cuda_ms(lambda: double_conv_plain(p, parts), 10),
+                         bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms))
+        del parts, ref_out, got_out
+    k1 = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "ops_ms",
+                                               "bytes_ms")}
+    k1["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    k1["bound_by"] = "operations" if k1["ops_ms"] >= k1["bytes_ms"] else "bytes"
+    run = lambda cfg_, iters, collect=("rmse",): rollout(
+        r2c, op, source, sos, cfg=cfg_, num_iterations=iters, collect=collect, device=dev)
+    run(cfg_r, 2)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run(cfg_r, SPLIT_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = hand_kernels()
+    rmse = res["rmse"].cpu().numpy()
+    with deterministic_cudnn():
+        ref = run(cfg_x, 4)["rmse"].cpu().numpy()
+    early = (np.abs(rmse[:4] - ref) / ref).max()
+    prof = profile_steps(lambda k: run(cfg_r, k), SPLIT_PROFILE_STEPS)
+    gps = SPLIT_MAPS * n * n * SPLIT_ITERS / wall
+    log(f"phase 17c rollout {SPLIT_MAPS} x {n}^2 x {SPLIT_ITERS} ('pallas', tpu_r2c, fft "
+        f"operator): {wall:.3f} s, {gps:.4e} gridpoints/s, launches K2a/K2b/K2c/K1/K3 "
+        f"{counts}; rmse {rmse[0].max():.4e} -> {rmse[-1].max():.4e}, first 4 against "
+        f"'xla' f32 max rel diff {early:.3e} (rtol {EARLY_RTOL}); K1 a step (14 calls at "
+        f"{SPLIT_MAPS} x {n}^2 and below, max|err| {k1['max_abs_err']:.3e}): "
+        f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
+        f"({k1['bound_by']}); profile of {SPLIT_PROFILE_STEPS} steps: wall "
+        f"{prof['wall_ms_per_step']:.3f} ms, device {prof['device_ms_per_step']:.3f} ms "
+        f"a step, busy share {prof['busy_share']:.4f}")
+    if counts != (0, 0, 0, steps * SPLIT_ITERS, 0):
+        fail(f"the 1024^2 rollout launched {counts}, not {steps * SPLIT_ITERS} K1 alone")
+    if not (np.isfinite(rmse).all() and early <= EARLY_RTOL):
+        fail("the 1024^2 rollout on K1 is not finite or disagrees with cuDNN f32")
+    out["rollout"] = {"seconds": wall, "gridpoints_per_s": gps, "k1_launches": counts[3],
+                      "rmse": rmse[[0, -1]].tolist(), "early_rel_diff": float(early),
+                      "k1_step": k1, "k1_calls": rows, "profile": prof}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 17 done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -3359,6 +3583,9 @@ def main() -> int:
     # -- 16. skull, figures, sanitizers, dry run -----------------------------
     last = last_slice_phase(dev, cfg_kernel, cfg_cudnn, hand_kernel_counts)
 
+    # -- 17. the split grid's single-card end at 1024^2 ----------------------
+    split = split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernel_counts)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -3389,7 +3616,12 @@ def main() -> int:
             f"16a skull {SKULL_GRID}^2 x {SKULL_ITERS}": last["skull"]["k1_launches"],
             f"16c checked rollout {GRID}^2 x {SANITIZE_MAPS} x {SANITIZE_ITERS}":
                 last["sanitize"]["k1_launches"],
+            f"17c rollout {SPLIT_GRID}^2 x {SPLIT_MAPS} x {SPLIT_ITERS}":
+                split["rollout"]["k1_launches"],
         },
+        # a step at 17c's 1024^2 x 4: the sum over its 14 calls
+        "step_1024": {k: split["rollout"]["k1_step"][k]
+                      for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
     }, {
         "name": "packed_double_conv",
         "route": "cuda",
@@ -3479,6 +3711,7 @@ def main() -> int:
                            "profile": gmres_profile},
                        "training": training, "classical": classical,
                        "serving": serving, "solvers3d": solvers3d, "last_slice": last,
+                       "split_grid": split,
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

@@ -17,11 +17,25 @@ hidden state. The communication is explicit:
   over H, so each rank all-gathers u along y and multiplies its own rows
   of `A_y`; `u A_x^T` likewise along x. The adjoint of the gather is a
   sum over the axis's ranks, of which each keeps its own slice.
+* the fft operator (`laplacian_fft`) transforms along one axis at a time
+  on pencils (`Spatial.whole_along`): an all-to-all over the axis's group
+  makes the axis whole on a slice of the other axis, the 1D transforms
+  run there, and the inverse all-to-all goes back. Its backward is the
+  inverse all-to-all. Where the other axis's tile does not split over
+  the group, the axis is all-gathered instead and the rank keeps its own
+  slice of the result.
 * global means: local sums all-reduced over y and x (`Spatial.sum`).
 
-A level must split evenly: H and W divisible by (y 2^depth) and
-(x 2^depth). GSPMD pads a level that does not; the port refuses it with a
-ValueError, before any step.
+A UNet level whose H (or W) is not a multiple of the y (or x) axis size
+runs whole along that axis on every rank of it, as does every deeper
+level (`Spatial.level`): GSPMD pads such a level instead, and the
+function computed is the same. The way in is an all-gather along the
+axis (`Spatial.enter`, before the strided conv), whose adjoint sums the
+ranks' gradients and keeps the rank's slice; the way out is the rank's
+own slice of the transposed conv's output (`Spatial.leave`). The hidden
+states of such levels are whole along that axis on each rank. Level 0,
+the fields, must split evenly, and H and W must be multiples of 2^depth,
+as the UNet needs on one device.
 
 Communication is point to point along each axis's group
 (`batch_isend_irecv`) and collectives on those groups: NCCL on cards,
@@ -30,11 +44,14 @@ gloo on the CPU.
 
 from __future__ import annotations
 
+import copy
+
 import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..core.meshes import Mesh
+from .dfft import all_to_all
 from .halo import all_reduce_axes
 from .multihost import all_gather_dim
 
@@ -130,11 +147,28 @@ class _AxisGather(torch.autograd.Function):
         return g.narrow(dim, index * t, t), None, None, None, None
 
 
+class _AxisAllToAll(torch.autograd.Function):
+    """`dfft.all_to_all` over one mesh axis: `x` cut into the axis's n
+    blocks along `split`, block j sent to its j-th rank, the received
+    blocks concatenated along `concat`; the backward is the inverse
+    all-to-all (`concat` and `split` swapped)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, name, split, concat):
+        ctx.meta = (mesh, name, split, concat)
+        return all_to_all(x, mesh, name, split, concat)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, name, split, concat = ctx.meta
+        return all_to_all(g, mesh, name, concat, split), None, None, None, None
+
+
 class Spatial:
     """This rank's tile of an H x W grid split over the mesh axes y and x,
     and the communication that convolutions, the operator and global means
-    need across tiles. `depth`: the UNet depth, whose levels must all split
-    evenly."""
+    need across tiles. `depth`: the UNet depth (0 for a network without
+    levels); H and W must be multiples of 2^depth."""
 
     def __init__(self, mesh: Mesh, height: int, width: int, depth: int):
         self.mesh = mesh
@@ -142,14 +176,14 @@ class Spatial:
         self.iy, self.ix = mesh.index("y"), mesh.index("x")
         self.height, self.width = height, width
         for name, size, n in (("H", height, self.ny), ("W", width, self.nx)):
-            for d in range(depth + 1):
-                level = size // 2**d
-                if size % 2**d or level % n:
-                    raise ValueError(
-                        f"UNet level {d} of the {height}x{width} grid has "
-                        f"{name} = {size / 2**d:g}, which does not split "
-                        f"evenly over {n} ranks: the spatial partition needs "
-                        f"{name} divisible by {n} * 2^{depth}")
+            if size % 2**depth:
+                raise ValueError(
+                    f"the {height}x{width} grid has {name} = {size}, not a "
+                    f"multiple of 2^{depth}: the UNet's levels need it")
+            if size % n:
+                raise ValueError(
+                    f"the {height}x{width} grid has {name} = {size}, which "
+                    f"does not split evenly over {n} ranks")
         self.tile_h, self.tile_w = height // self.ny, width // self.nx
         coords = list(mesh.coords())
         self._axes = {}
@@ -158,6 +192,50 @@ class Spatial:
             ranks = [mesh.rank_at(coords[:a] + [j] + coords[a + 1:])
                      for j in range(mesh.size(name))]
             self._axes[name] = (mesh.index(name), ranks, mesh.group(name))
+        self._levels = {0: self}
+
+    def level(self, d: int) -> "Spatial":
+        """This partition at UNet level d (the grid halved d times): an
+        axis whose level-d size is not a multiple of its rank count is
+        whole there, on each of its ranks (no halo, no gather along it)."""
+        if d not in self._levels:
+            root = self._levels[0]
+            v = copy.copy(root)
+            v.height, v.width = root.height >> d, root.width >> d
+            v._axes = dict(root._axes)
+            for name, size in (("y", v.height), ("x", v.width)):
+                if size % len(root._axes[name][1]):
+                    v._axes[name] = (0, [self.mesh.rank], None)
+            (v.iy, ranks_y, _), (v.ix, ranks_x, _) = v._axes["y"], v._axes["x"]
+            v.ny, v.nx = len(ranks_y), len(ranks_x)
+            v.tile_h, v.tile_w = v.height // v.ny, v.width // v.nx
+            self._levels[d] = v
+        return self._levels[d]
+
+    def _whole_at(self, d: int):
+        """The mesh axes split at level d - 1 and whole at level d, with
+        their (H, W) dimension offset."""
+        prev, cur = self.level(d - 1), self.level(d)
+        return [(name, off) for off, name in enumerate(("y", "x"))
+                if len(cur._axes[name][1]) < len(prev._axes[name][1])]
+
+    def enter(self, t: torch.Tensor, d: int, hdim: int = 1) -> torch.Tensor:
+        """A level d - 1 tile made the input of the conv into level d:
+        all-gathered along each axis that is whole at level d."""
+        prev = self.level(d - 1)
+        for name, off in self._whole_at(d):
+            t = prev.gather_axis(t, name, hdim + off)
+        return t
+
+    def leave(self, t: torch.Tensor, d: int, hdim: int = 1) -> torch.Tensor:
+        """The level d - 1 output of a transposed conv run on level d's
+        partition, cut to this rank's level d - 1 tile along each axis
+        that is whole at level d."""
+        prev = self.level(d - 1)
+        for name, off in self._whole_at(d):
+            size = (prev.tile_h, prev.tile_w)[off]
+            t = t.narrow(hdim + off, prev._axes[name][0] * size, size)
+        return t
 
     @property
     def rows(self) -> slice:
@@ -178,12 +256,14 @@ class Spatial:
     def gather(self, t: torch.Tensor, hdim: int = 1) -> torch.Tensor:
         """The global tensor from every rank's tile (dims `hdim`, `hdim`+1),
         on every rank; no gradient."""
-        t = all_gather_dim(t, self.mesh.group("x"), self.nx, hdim + 1)
-        return all_gather_dim(t, self.mesh.group("y"), self.ny, hdim)
+        for name, dim in (("x", hdim + 1), ("y", hdim)):
+            _, ranks, group = self._axes[name]
+            t = all_gather_dim(t, group, len(ranks), dim)
+        return t
 
     def sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of `t` over the y and x ranks (a partial sum of each tile
-        made global); no gradient."""
+        """The sum of `t` over the y and x ranks (a partial sum of each
+        level-0 tile made global); no gradient."""
         return all_reduce_axes(t.detach().clone(), self.mesh, ("y", "x"))
 
     def pad(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
@@ -207,3 +287,21 @@ class Spatial:
         if len(ranks) == 1:
             return u
         return _AxisGather.apply(u, dim, index, len(ranks), group)
+
+    def whole_along(self, u: torch.Tensor, name: str, dim: int, other: int, fn):
+        """`fn` applied to `u` made whole along `dim` (mesh axis `name`),
+        and this rank's tile of its result: an all-to-all over the axis's
+        group trades the split of `dim` for a split of `other`, and the
+        inverse one comes back; both have their inverse as backward. When
+        `other`'s tile does not split over the group, `u` is all-gathered
+        along `dim` instead and the rank keeps its slice. `fn` must keep
+        the shape and act along `dim` only."""
+        index, ranks, _ = self._axes[name]
+        n = len(ranks)
+        if n == 1:
+            return fn(u)
+        if u.shape[other] % n == 0:
+            t = _AxisAllToAll.apply(u, self.mesh, name, other, dim)
+            return _AxisAllToAll.apply(fn(t), self.mesh, name, dim, other)
+        size = u.shape[dim]
+        return fn(self.gather_axis(u, name, dim)).narrow(dim, index * size, size)

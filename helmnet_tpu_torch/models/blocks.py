@@ -204,6 +204,7 @@ def double_conv(params, x, activation: str, precision: str = "highest",
                   spatial=spatial)
 
 
-def res_double_conv(params, x, activation: str, precision: str = "highest"):
+def res_double_conv(params, x, activation: str, precision: str = "highest",
+                    spatial=None):
     """DoubleConv with residual skip (reference ResDoubleConv)."""
-    return double_conv(params, x, activation, precision) + x
+    return double_conv(params, x, activation, precision, spatial=spatial) + x

@@ -25,7 +25,11 @@ missing. Otherwise (`'xla'`) the DoubleConvs are cuDNN convs in f32.
 
 `apply(..., spatial=)` runs on this rank's tiles of a grid split over the
 mesh axes y and x (distributed/spatial.py): x, out and every state are
-tiles, and every conv exchanges its halo. That is the `'xla'` path; K1
+tiles, and every conv exchanges its halo. A level that does not split
+over an axis runs whole along it (`Spatial.level`): the strided conv
+into it reads its input gathered along that axis (`Spatial.enter`), the
+transposed conv out of it is cut to the rank's tile (`Spatial.leave`),
+and its state is whole along the axis. That is the `'xla'` path; K1
 pads each tile with zeros inside the kernel, so `'pallas'` mode refuses
 a spatial partition.
 """
@@ -85,9 +89,13 @@ def prepare_k1(params, cfg: ModelConfig):
     return out
 
 
-def states_dimension(domain_size, depth: int) -> list[tuple[int, int]]:
+def states_dimension(domain_size, depth: int, spatial=None) -> list[tuple[int, int]]:
     """Per-level state grid sizes [(H/2^d, W/2^d)]. `domain_size` may be an
-    int (square) or an (H, W) tuple."""
+    int (square) or an (H, W) tuple. With `spatial`, this rank's part of
+    each level (`Spatial.level`), and `domain_size` is not read."""
+    if spatial is not None:
+        return [(spatial.level(d).tile_h, spatial.level(d).tile_w)
+                for d in range(depth)]
     if isinstance(domain_size, int):
         h = w = domain_size
     else:
@@ -135,10 +143,11 @@ def init_params(generator: torch.Generator, cfg: ModelConfig):
 
 
 def init_states(
-    batch: int, domain_size, cfg: ModelConfig, dtype=torch.float32, device="cpu"
+    batch: int, domain_size, cfg: ModelConfig, dtype=torch.float32, device="cpu",
+    spatial=None,
 ) -> Tuple[torch.Tensor, ...]:
-    """Zero hidden states."""
-    dims = states_dimension(domain_size, cfg.depth)
+    """Zero hidden states (with `spatial`, this rank's parts)."""
+    dims = states_dimension(domain_size, cfg.depth, spatial)
     return tuple(
         torch.zeros((batch,) + dims[d] + (cfg.state_channels,), dtype=dtype,
                     device=device)
@@ -166,14 +175,20 @@ def apply(
             "mesh axes y and x: K1 pads each tile with zeros, not with its "
             "neighbours' rows; use double_conv_mode='xla'")
 
-    def dconv(p, *parts, post=None):
+    if spatial is None:
+        lv = lambda d: None
+        enter = leave = lambda t, d: t
+    else:
+        lv, enter, leave = spatial.level, spatial.enter, spatial.leave
+
+    def dconv(p, *parts, post=None, d=0):
         if use_kernel:
             pw = p.get(K1_KEY)  # prepared by `prepare_k1`, else converted there
             if pw is None:
                 pw = p if post is None else dict(p, post=post)
             return fused_double_conv(pw, tuple(t.contiguous() for t in parts))
         t = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
-        h = double_conv(p, t, act, prec, spatial=spatial)
+        h = double_conv(p, t, act, prec, spatial=lv(d))
         if post is not None:
             h = conv2d(post, h, precision=prec)
         return h
@@ -185,23 +200,23 @@ def apply(
     for d in range(cfg.depth):
         blk = params["enc"][d]
         if d < cfg.state_depth:
-            out = dconv(blk["conv_signal"], x, states[d])
-            new_states.append(dconv(blk["conv_state"], out, states[d]))
+            out = dconv(blk["conv_signal"], x, states[d], d=d)
+            new_states.append(dconv(blk["conv_state"], out, states[d], d=d))
         else:
-            out = dconv(blk["conv_signal"], x)
+            out = dconv(blk["conv_signal"], x, d=d)
         inner_signals.append(out)
-        x = conv2d(blk["down"], out, stride=2, padding=3, precision=prec,
-                   spatial=spatial)
+        x = conv2d(blk["down"], enter(out, d + 1), stride=2, padding=3,
+                   precision=prec, spatial=lv(d + 1))
 
     up = conv_transpose2d_subpixel if cfg.up_mode == "subpixel" else conv_transpose2d
-    x = dconv(params["decode"][-1], x)
+    x = dconv(params["decode"][-1], x, d=cfg.depth)
     for d in range(cfg.depth - 1, 0, -1):
-        x = up(params["up"][d], x, stride=2, padding=3, precision=prec,
-               spatial=spatial)
-        x = dconv(params["decode"][d], x, inner_signals[d])
+        x = leave(up(params["up"][d], x, stride=2, padding=3, precision=prec,
+                     spatial=lv(d + 1)), d + 1)
+        x = dconv(params["decode"][d], x, inner_signals[d], d=d)
     # last decoder level with the 1x1 outc head folded in
-    x = up(params["up"][0], x, stride=2, padding=3, precision=prec,
-           spatial=spatial)
+    x = leave(up(params["up"][0], x, stride=2, padding=3, precision=prec,
+                 spatial=lv(1)), 1)
     out = dconv(params["decode"][0], x, inner_signals[0], post=params["outc"])
     return out, tuple(new_states)
 
@@ -220,9 +235,9 @@ def flatten_states(states: Sequence[torch.Tensor]) -> torch.Tensor:
 
 
 def unflatten_states(
-    flat: torch.Tensor, domain_size, cfg: ModelConfig
+    flat: torch.Tensor, domain_size, cfg: ModelConfig, spatial=None
 ) -> Tuple[torch.Tensor, ...]:
-    dims = states_dimension(domain_size, cfg.depth)
+    dims = states_dimension(domain_size, cfg.depth, spatial)
     states = []
     start = 0
     b, c = flat.shape[0], flat.shape[1]

@@ -9,6 +9,10 @@ Each architecture is a namespace exposing the functional model contract:
   unflatten_states(flat, domain, cfg)   -> tuple of state tensors
   total_state_length(domain, cfg)       -> S
 
+`apply`, `init_states` and `unflatten_states` take `spatial=` (a
+distributed/spatial.Spatial): the tensors are then this rank's tiles,
+each state at its level's partition (`Spatial.level`).
+
 `custom_unet` (HybridNet) and `resnet`, as in the JAX package; any other
 name raises NotImplementedError.
 """

@@ -11,7 +11,9 @@ The state is one full-resolution `[B, H, W, state_channels]` tensor,
 carried as a 1-tuple (the same `(out, new_states)` contract as
 `hybridnet.apply`). Its convs are cuDNN calls (f32 on the card, TF32
 off); like the JAX package's resnet it never reaches a fused DoubleConv
-kernel.
+kernel. With `spatial=` (distributed/spatial.Spatial) the input, the
+state and the output are this rank's tiles and every conv exchanges its
+halo, as `hybridnet.apply` does.
 """
 
 from __future__ import annotations
@@ -46,27 +48,31 @@ def prepare_params(params, cfg: ModelConfig):
     return params
 
 
-def _hw(domain_size) -> tuple[int, int]:
+def _hw(domain_size, spatial=None) -> tuple[int, int]:
+    """The state's grid: `domain_size`, or with `spatial` this rank's tile
+    (`domain_size` is not read)."""
+    if spatial is not None:
+        return spatial.tile_h, spatial.tile_w
     if isinstance(domain_size, int):
         return domain_size, domain_size
     return tuple(domain_size)
 
 
 def init_states(batch: int, domain_size, cfg: ModelConfig, dtype=torch.float32,
-                device="cpu") -> Tuple[torch.Tensor, ...]:
-    h, w = _hw(domain_size)
+                device="cpu", spatial=None) -> Tuple[torch.Tensor, ...]:
+    h, w = _hw(domain_size, spatial)
     return (torch.zeros((batch, h, w, cfg.state_channels), dtype=dtype,
                         device=device),)
 
 
 def apply(params, x: torch.Tensor, states: Sequence[torch.Tensor], *,
-          cfg: ModelConfig) -> tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+          cfg: ModelConfig, spatial=None) -> tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
     prec = cfg.precision
     h = torch.cat([x, states[0]], dim=-1)
-    h = conv2d(params["inc"], h, padding=3, precision=prec)
+    h = conv2d(params["inc"], h, padding=3, precision=prec, spatial=spatial)
     for blk in params["blocks"]:
-        h = res_double_conv(blk, h, cfg.activation_function, prec)
-    y = conv2d(params["outc"], h, padding=3, precision=prec)
+        h = res_double_conv(blk, h, cfg.activation_function, prec, spatial=spatial)
+    y = conv2d(params["outc"], h, padding=3, precision=prec, spatial=spatial)
     new_state = y[..., : cfg.state_channels]
     out = y[..., cfg.state_channels :]
     return out, (new_state,)
@@ -78,9 +84,9 @@ def flatten_states(states: Sequence[torch.Tensor]) -> torch.Tensor:
     return s.permute(0, 3, 1, 2).reshape(b, c, h * w)
 
 
-def unflatten_states(flat: torch.Tensor, domain_size,
-                     cfg: ModelConfig) -> Tuple[torch.Tensor, ...]:
-    h, w = _hw(domain_size)
+def unflatten_states(flat: torch.Tensor, domain_size, cfg: ModelConfig,
+                     spatial=None) -> Tuple[torch.Tensor, ...]:
+    h, w = _hw(domain_size, spatial)
     b, c = flat.shape[0], flat.shape[1]
     return (flat.reshape(b, c, h, w).permute(0, 2, 3, 1).contiguous(),)
 

@@ -174,24 +174,42 @@ def laplacian_matmul(op: SpectralPML, u: torch.Tensor, spatial=None) -> torch.Te
     return lx + ly
 
 
-def laplacian_fft(op: SpectralPML, u: torch.Tensor) -> torch.Tensor:
-    """PML Laplacian via 1D FFTs: fft_x, two ifft_x, fft_y, two ifft_y."""
-    uc = torch.complex(u[..., 0], u[..., 1])
-    cplx = lambda p: torch.complex(p[..., 0], p[..., 1])
-    # x axis (last)
-    ikx = torch.complex(torch.zeros_like(op.kx), op.kx)
-    fx = torch.fft.fft(uc, dim=-1)
-    pair_x = torch.stack([ikx * fx, (ikx**2) * fx])
-    dx, ddx = torch.fft.ifft(pair_x, dim=-1)
-    lx = cplx(op.ax1d) * dx + cplx(op.bx1d) * ddx
-    # y axis (second-to-last)
-    iky = torch.complex(torch.zeros_like(op.ky), op.ky)
-    fy = torch.fft.fft(uc, dim=-2)
-    pair_y = torch.stack([iky[:, None] * fy, (iky**2)[:, None] * fy])
-    dy, ddy = torch.fft.ifft(pair_y, dim=-2)
-    ly = cplx(op.ay1d)[:, None] * dy + cplx(op.by1d)[:, None] * ddy
-    out = lx + ly
-    return torch.stack([out.real, out.imag], dim=-1)
+def _cplx(p: torch.Tensor) -> torch.Tensor:
+    return torch.complex(p[..., 0], p[..., 1])
+
+
+def _fft_term(uc: torch.Tensor, k, a, b, dim: int) -> torch.Tensor:
+    """a du/dz + b d2u/dz2 along `dim` (-1: x, -2: y) of complex uc, whole
+    along it, by one fft and two iffts; k, a, b are the axis's wavenumbers
+    and PML coefficient pairs."""
+    col = (lambda t: t[:, None]) if dim == -2 else (lambda t: t)
+    ik = torch.complex(torch.zeros_like(k), k)
+    f = torch.fft.fft(uc, dim=dim)
+    d1, d2 = torch.fft.ifft(torch.stack([col(ik) * f, col(ik**2) * f]), dim=dim)
+    return col(_cplx(a)) * d1 + col(_cplx(b)) * d2
+
+
+def laplacian_fft(op: SpectralPML, u: torch.Tensor, spatial=None) -> torch.Tensor:
+    """PML Laplacian via 1D FFTs: fft_x, two ifft_x, fft_y, two ifft_y.
+    With `spatial` (distributed/spatial.Spatial), u is this rank's tile and
+    each axis's transforms run on pencils whole along it
+    (`Spatial.whole_along`); autograd runs through the exchanges."""
+    x = (op.kx, op.ax1d, op.bx1d, -1)
+    y = (op.ky, op.ay1d, op.by1d, -2)
+    if spatial is None:
+        uc = _cplx(u)
+        out = _fft_term(uc, *x) + _fft_term(uc, *y)
+        return torch.stack([out.real, out.imag], dim=-1)
+
+    def term(axis):
+        def fn(p):
+            t = _fft_term(_cplx(p), *axis)
+            return torch.stack([t.real, t.imag], dim=-1)
+        return fn
+
+    hd, wd = u.dim() - 3, u.dim() - 2
+    return (spatial.whole_along(u, "x", wd, hd, term(x))
+            + spatial.whole_along(u, "y", hd, wd, term(y)))
 
 
 # The JAX package's crossover: the O(N^3) matmul operator below 1024^2,
@@ -209,7 +227,7 @@ def resolve_mode(mode: str, height: int, width: int) -> str:
 def laplacian(op: SpectralPML, u: torch.Tensor, mode: str = "matmul",
               spatial=None) -> torch.Tensor:
     """`spatial`: u is this rank's tile of a grid split over the mesh axes
-    y and x (distributed/spatial.py), in matmul mode only."""
+    y and x (distributed/spatial.py); 'auto' resolves on the whole grid."""
     if mode == "auto" and not op.has_dense:
         mode = "fft"  # a dense-free operator only carries the fft tables
     mode = resolve_mode(mode, u.shape[-3] * (spatial.ny if spatial else 1),
@@ -223,11 +241,7 @@ def laplacian(op: SpectralPML, u: torch.Tensor, mode: str = "matmul",
             )
         return laplacian_matmul(op, u, spatial)
     elif mode == "fft":
-        if spatial is not None:
-            raise ValueError(
-                "a grid split over the mesh axes y and x needs the matmul "
-                "operator; the fft mode (1024^2 and up) is not partitioned")
-        return laplacian_fft(op, u)
+        return laplacian_fft(op, u, spatial)
     raise ValueError(f"unknown operator mode {mode!r}")
 
 

@@ -27,6 +27,21 @@ a device fallback: `torch.linalg.lstsq` on CUDA has only `gels`, which
 assumes full rank, and gives NaN for the rank-deficient H of a converged
 problem (beta = 0) or of a happy breakdown. It costs one small copy and
 one synchronisation per cycle.
+
+`spatial=` (a distributed/spatial.Spatial) solves on a grid split over
+the mesh axes y and x, as GSPMD partitions the JAX package's solve:
+k^2, the source, the Krylov basis and x are this rank's tiles, the
+matvec is the partitioned operator (`helmholtz_residual(..., spatial=)`
+for the spectral operator in either mode; the halo-exchanged stencil
+residual of distributed/halo.py for a StencilPML), and every norm and
+inner product is completed over y and x (`Spatial.sum`), so the small
+least-squares solve runs on the same numbers on every rank. Each
+completion is a collective, so there the Arnoldi step orthogonalises by
+classical Gram-Schmidt run twice (CGS2, as the host FGMRES cycle of
+solvers/fgmres.py does): two all-reduces of its j + 1 inner products,
+where modified Gram-Schmidt needs j + 1 all-reduces in sequence. CGS2
+keeps the basis orthogonal to working precision, as MGS does; the
+trajectory differs from the unsplit one in rounding only.
 """
 
 from __future__ import annotations
@@ -38,6 +53,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
+from ..distributed.halo import make_sharded_stencil_residual
 from ..ops.spectral import helmholtz_residual, laplacian
 from ..ops.stencil import StencilPML
 from ..ops.stencil_residual import helmholtz_residual_stencil_auto
@@ -60,6 +76,14 @@ def _vdot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (a.conj() * b).sum(-1)
 
 
+def _norm_of(spatial):
+    """The 2-norm over the last axis; with `spatial`, of the global vectors
+    whose tiles these are."""
+    if spatial is None:
+        return _norm
+    return lambda v: torch.sqrt(spatial.sum(torch.sum(v.real**2 + v.imag**2, -1)))
+
+
 def _lstsq_host(h: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """min_y ||rhs - h y|| per problem: h [B, m+1, m], rhs [B, m+1] ->
     y [B, m], by SVD (gelsd) on the host, rcond eps * max(m+1, m) as in
@@ -68,13 +92,15 @@ def _lstsq_host(h: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return sol[..., 0].to(h.device)
 
 
-def _arnoldi_cycle(matvec, b: torch.Tensor, x0: torch.Tensor, restart: int):
+def _arnoldi_cycle(matvec, b: torch.Tensor, x0: torch.Tensor, restart: int,
+                   spatial=None):
     """One GMRES(m) cycle for a batch: b, x0 [B, n]; matvec maps [B, n] to
     [B, n]. Returns the new iterate [B, n]."""
+    norm = _norm_of(spatial)
     nb, n = b.shape
     dtype, dev = b.dtype, b.device
     r0 = b - matvec(x0)
-    beta = _norm(r0)
+    beta = norm(r0)
     safe_beta = torch.where(beta > 0, beta, torch.ones_like(beta))
 
     # [m+1, B, n]: V[j] is a contiguous [B, n] block for the matvec
@@ -83,12 +109,21 @@ def _arnoldi_cycle(matvec, b: torch.Tensor, x0: torch.Tensor, restart: int):
     H = torch.zeros((nb, restart + 1, restart), dtype=dtype, device=dev)
     for j in range(restart):
         w = matvec(V[j])
-        # modified Gram-Schmidt against V[0..j]
-        for i in range(j + 1):
-            h = _vdot(V[i], w)
-            w = w - h[:, None] * V[i]
-            H[:, i, j] = h
-        hnorm = _norm(w)
+        if spatial is None:
+            # modified Gram-Schmidt against V[0..j]
+            for i in range(j + 1):
+                h = _vdot(V[i], w)
+                w = w - h[:, None] * V[i]
+                H[:, i, j] = h
+        else:
+            # classical Gram-Schmidt, twice: each pass's j + 1 inner
+            # products make one all-reduce, where MGS makes one of each
+            basis = V[: j + 1]
+            for _ in range(2):
+                h = spatial.sum(torch.einsum("kbn,bn->bk", basis.conj(), w))
+                w = w - torch.einsum("kbn,bk->bn", basis, h)
+                H[:, : j + 1, j] += h
+        hnorm = norm(w)
         H[:, j + 1, j] = hnorm.to(dtype)
         safe = torch.where(hnorm > 0, hnorm, torch.ones_like(hnorm))
         V[j + 1] = w / safe[:, None]
@@ -102,20 +137,21 @@ def _arnoldi_cycle(matvec, b: torch.Tensor, x0: torch.Tensor, restart: int):
 
 
 def _gmres(mv, b: torch.Tensor, x0: Optional[torch.Tensor], restart: int,
-           max_restarts: int, tol: float):
+           max_restarts: int, tol: float, spatial=None):
     """The batched restarted loop on flat vectors b [B, n]. Returns (x
     [B, n], residual norms [B, max_restarts + 1], checkpoints
     [max_restarts, B, n], iterations [B])."""
+    norm = _norm_of(spatial)
     x = torch.zeros_like(b) if x0 is None else x0
-    bnorm = _norm(b)
-    norms = [_norm(b - mv(x))]
+    bnorm = norm(b)
+    norms = [norm(b - mv(x))]
     done = torch.zeros(b.shape[0], dtype=torch.bool, device=b.device)
     iters = torch.zeros(b.shape[0], dtype=torch.int64, device=b.device)
     xs = []
     for _ in range(max_restarts):
-        x_new = _arnoldi_cycle(mv, b, x, restart)
+        x_new = _arnoldi_cycle(mv, b, x, restart, spatial)
         x = torch.where(done[:, None], x, x_new)
-        rn = _norm(b - mv(x))
+        rn = norm(b - mv(x))
         iters = iters + torch.where(done, 0, restart)
         done = done | (rn <= tol * torch.clamp_min(bnorm, 1e-30))
         xs.append(x)
@@ -131,10 +167,13 @@ def gmres_restarted_batch(
     restart: int = 20,
     max_restarts: int = 50,
     tol: float = 1e-10,
+    spatial=None,
 ) -> GMRESResult:
     """Restarted GMRES with per-cycle solution checkpoints for a batch of
     independent problems b [B, ...]; `matvec` maps [B, ...] to [B, ...]
-    (one operator application for the whole batch).
+    (one operator application for the whole batch). With `spatial`, b,
+    x0 and what `matvec` maps are this rank's tiles of [B, H, W] grids,
+    and the norms are global.
 
     Runs `max_restarts` cycles of GMRES(restart) and records each
     problem's solution and TRUE residual norm ||b - A x|| after each
@@ -147,7 +186,7 @@ def gmres_restarted_batch(
     mv = lambda v: matvec(v.reshape(shape)).reshape(nb, -1)
     x, norms, xs, iters = _gmres(
         mv, b.reshape(nb, -1), None if x0 is None else x0.reshape(nb, -1),
-        restart, max_restarts, tol)
+        restart, max_restarts, tol, spatial)
     return GMRESResult(
         x=x.reshape(shape),
         residual_norms=norms,
@@ -178,20 +217,28 @@ def gmres_restarted(
 # ---------------------------------------------------------------------------
 
 
-def make_helmholtz_matvec(op, k_sq: torch.Tensor, mode: str = "auto"):
+def make_helmholtz_matvec(op, k_sq: torch.Tensor, mode: str = "auto",
+                          spatial=None):
     """Complex matvec u -> L u + k^2 u on [..., H, W] complex grids.
 
     `op` may be the spectral operator (SpectralPML; `mode` selects
     matmul/fft) or the FD stencil operator (StencilPML): GMRES on the
     sparse stencil system, which on the card is one launch of the fused
-    residual kernel (K2, no source) on stride-2 views of complex64."""
+    residual kernel (K2, no source) on stride-2 views of complex64. With
+    `spatial`, u and k_sq are this rank's tiles; on a StencilPML the
+    matvec is the halo-exchanged residual of distributed/halo.py (the
+    plain stencil on the widened tile, not K2)."""
+    if isinstance(op, StencilPML) and spatial is not None:
+        residual = make_sharded_stencil_residual(spatial.mesh, op)
+        return lambda u: torch.view_as_complex(
+            residual(torch.view_as_real(u), k_sq, 0.0).contiguous())
 
     def mv(u: torch.Tensor) -> torch.Tensor:
         pair = torch.view_as_real(u)
         if isinstance(op, StencilPML):
             return torch.view_as_complex(
                 helmholtz_residual_stencil_auto(op, pair, k_sq))
-        lap = laplacian(op, pair, mode)
+        lap = laplacian(op, pair, mode, spatial)
         return torch.view_as_complex(lap.contiguous()) + k_sq.to(u.real.dtype) * u
 
     return mv
@@ -214,13 +261,18 @@ def _rhs(source, device, batched: bool, dims: int = 2) -> torch.Tensor:
 
 
 def _solve(op, k_sq, b, *, mode, restart, max_restarts, tol, precond,
-           shift) -> GMRESResult:
+           shift, spatial=None) -> GMRESResult:
     """GMRES on b [B, H, W] complex; complex fields in the result."""
     if precond not in ("none", "shifted_laplace"):
         raise ValueError(f"unknown precond {precond!r} (use 'none' or "
                          f"'shifted_laplace')")
-    mv = make_helmholtz_matvec(op, k_sq, mode)
-    opts = dict(restart=restart, max_restarts=max_restarts, tol=tol)
+    if precond != "none" and spatial is not None:
+        raise ValueError("precond='shifted_laplace' is not partitioned: its "
+                         "2D FFT inverse needs the whole grid; solve a split "
+                         "grid with precond='none'")
+    mv = make_helmholtz_matvec(op, k_sq, mode, spatial)
+    opts = dict(restart=restart, max_restarts=max_restarts, tol=tol,
+                spatial=spatial)
     if precond == "none":
         return gmres_restarted_batch(mv, b, **opts)
     minv = make_shifted_laplace_inverse(op, k_sq, shift)
@@ -242,6 +294,7 @@ def solve_helmholtz(
     precond: str = "none",
     shift: tuple = (1.0, 0.5),
     device=None,
+    spatial=None,
 ) -> GMRESResult:
     """Solve (L + k^2) u = s for one problem.
 
@@ -252,13 +305,19 @@ def solve_helmholtz(
     precond='shifted_laplace' right-preconditions with the FFT-diagonal
     complex shifted Laplacian (solvers/precond.py; spectral operator only).
     Residual norms remain TRUE residuals of the original system. Runs on
-    the card unless `device` says otherwise."""
+    the card unless `device` says otherwise.
+
+    `spatial`: k_sq and source are this rank's tiles of a grid split over
+    the mesh axes y and x, and so are x and the checkpoints; the residual
+    norms are the global ones (module docstring). Not with
+    precond='shifted_laplace'."""
     dev = resolve_device(device)
     op = op.to(dev)
     k_sq = _on(k_sq, dev, torch.float32)
     b = _rhs(source, dev, batched=False)[None]
     res = _solve(op, k_sq, b, mode=mode, restart=restart,
-                 max_restarts=max_restarts, tol=tol, precond=precond, shift=shift)
+                 max_restarts=max_restarts, tol=tol, precond=precond, shift=shift,
+                 spatial=spatial)
     # complex -> channel-pair fields, as the JAX package returns them
     return GMRESResult(torch.view_as_real(res.x[0]), res.residual_norms[0],
                        torch.view_as_real(res.checkpoints[0]), res.iterations[0])

@@ -66,9 +66,8 @@ def single_step(params, op: SpectralPML, source, k_sq, carry: SolverCarry,
     sigmas = op.sigmas if spatial is None else spatial.tile(op.sigmas)
     net_in = network_input(carry.wavefield, carry.residual,
                            sigmas.permute(1, 2, 0))  # [H, W, 2]
-    extra = {} if spatial is None else {"spatial": spatial}
     d, new_states = arch.apply(params, net_in, carry.states, cfg=cfg.model,
-                               **extra)
+                               spatial=spatial)
     wavefield = d / RESIDUAL_SCALE + carry.wavefield
     residual = helmholtz_residual(op, wavefield, k_sq, source, cfg.operator_mode,
                                   spatial)
@@ -125,7 +124,8 @@ def rollout(
     sos_maps = _on(sos_maps, dev)
     k_sq, wavefield = get_initials(sos_maps, cfg.source.omega)
     states = arch.init_states(sos_maps.shape[0], tuple(sos_maps.shape[1:3]),
-                              cfg.model, sos_maps.dtype, device=dev)
+                              cfg.model, sos_maps.dtype, device=dev,
+                              spatial=spatial)
     if init is not None:  # warm start (host-chunked long rollouts)
         wavefield = _on(init[0], dev)
         states = tuple(_on(s, dev) for s in init[1])

@@ -41,12 +41,13 @@ A mesh that splits the grid (y or x above 1) partitions the UNet and the
 operator spatially (distributed/spatial.py), as GSPMD does for the JAX
 package: each rank computes on its tile of every field and of every
 level's hidden state, its convolutions exchange halos, and its operator
-GEMMs gather along the contracted axis. The loss and metrics are global
+gathers along the contracted axis (matmul) or transposes pencils (fft).
+The loss and metrics are global
 means; each rank's gradient, a partial sum, is all-reduced over the whole
 mesh; the evolved fields and states are gathered before the write-back.
-The buffer, the draws and `validate` stay replicated on every rank. A
-grid whose UNet levels do not split evenly, the fft operator and
-architectures other than `custom_unet` are refused with a ValueError.
+The buffer, the draws and `validate` stay replicated on every rank. Both
+operator modes and both architectures partition; a UNet level that does
+not split evenly runs whole along that axis (distributed/spatial.py).
 
 Params are the port's nested dicts of leaf tensors; the trainer owns them
 (copies with `requires_grad`) and steps them in place with `torch.optim.Adam`.
@@ -70,7 +71,7 @@ from ..distributed.spatial import Spatial
 from ..models.hybridnet import iter_leaves, map_leaves
 from ..models.registry import get_architecture
 from ..ops.source import line_source_map, point_source_map
-from ..ops.spectral import make_operator, resolve_mode
+from ..ops.spectral import make_operator
 from ..solvers.iterative import SolverCarry, n_steps, rollout
 from .device_buffer import fresh_experiences, make_device_buffer_fns
 from .replay import ExperienceBatch, ReplayBuffer
@@ -148,7 +149,7 @@ def unrolled_loss(params, op, batch: ExperienceBatch, *, cfg: Config,
         batch.wavefield,
         batch.residual,
         arch.unflatten_states(batch.states, tuple(batch.wavefield.shape[1:3]),
-                              cfg.model),
+                              cfg.model, spatial=spatial),
     )
     _, ys = n_steps(params, op, batch.source, batch.k_sq, carry, cfg=cfg,
                     num_steps=t.unrolling_steps, remat=t.remat, spatial=spatial)
@@ -160,9 +161,10 @@ def shard_experience(mesh, batch: ExperienceBatch, spatial=None,
     """This rank's part of an ExperienceBatch, on the mesh's device: its
     slice along the data axis and, with `spatial` (and the `cfg` whose
     state layout the flat states follow), its tile of every field, of
-    k_sq and of every level of the flat states, which are then flattened
-    again in the tile's own layout. Every rank passes the full global
-    batch; `indices` stay global."""
+    k_sq and of every level of the flat states (at that level's
+    partition, `Spatial.level`), which are then flattened again in the
+    tile's own layout. Every rank passes the full global batch; `indices`
+    stay global."""
     s = data_sharding(mesh)
     local = ExperienceBatch(
         *(multihost.put_global(a, s) for a in batch[:-1]), batch.indices)
@@ -176,7 +178,8 @@ def shard_experience(mesh, batch: ExperienceBatch, spatial=None,
         residual=spatial.tile(local.residual).contiguous(),
         source=spatial.tile(local.source).contiguous(),
         k_sq=spatial.tile(local.k_sq).contiguous(),
-        states=arch.flatten_states([spatial.tile(st) for st in states]),
+        states=arch.flatten_states([spatial.level(d).tile(st)
+                                    for d, st in enumerate(states)]),
     )
 
 
@@ -235,17 +238,8 @@ class Trainer:
         g = cfg.geometry
         self.spatial = None
         if mesh is not None and (mesh.size("y") > 1 or mesh.size("x") > 1):
-            if cfg.model.architecture != "custom_unet":
-                raise ValueError(
-                    f"a mesh that splits the grid ({mesh.shape}) partitions "
-                    "the custom_unet only, not "
-                    f"{cfg.model.architecture!r}")
-            if resolve_mode(cfg.operator_mode, g.domain_size, g.domain_size) != "matmul":
-                raise ValueError(
-                    f"a mesh that splits the grid ({mesh.shape}) needs the "
-                    "matmul operator; the fft mode is not partitioned")
-            self.spatial = Spatial(mesh, g.domain_size, g.domain_size,
-                                   cfg.model.depth)
+            levels = cfg.model.depth if cfg.model.architecture == "custom_unet" else 0
+            self.spatial = Spatial(mesh, g.domain_size, g.domain_size, levels)
         self.sanitize = sanitize
         self.cfg = cfg
         self.mesh = mesh
@@ -412,13 +406,14 @@ class Trainer:
         spatial = self.spatial
         if spatial is not None:
             arch = self.arch
-            tile_states = arch.unflatten_states(
-                evolved["states"], (spatial.tile_h, spatial.tile_w), self.cfg.model)
+            tile_states = arch.unflatten_states(evolved["states"], None,
+                                                self.cfg.model, spatial=spatial)
             evolved = dict(
                 evolved,
                 wavefield=spatial.gather(evolved["wavefield"]),
                 residual=spatial.gather(evolved["residual"]),
-                states=arch.flatten_states([spatial.gather(st) for st in tile_states]),
+                states=arch.flatten_states([spatial.level(d).gather(st)
+                                            for d, st in enumerate(tile_states)]),
             )
         n, group = self.mesh.size("data"), self.mesh.group("data")
         return {k: multihost.all_gather_dim(v, group, n, 0)

@@ -67,7 +67,6 @@ from helmnet_tpu_torch.core.config import ParallelConfig
 from helmnet_tpu_torch.core.meshes import (Mesh, Sharding, data_sharding, make_mesh,
                                            replicated, shard_batch, spatial_sharding)
 from helmnet_tpu_torch.distributed import multihost
-from helmnet_tpu_torch.train import loop as tloop
 from tests import torch_dist_workers as workers
 from tests.test_torch_training import port_config, trained_params
 from tests.test_training import tiny_config
@@ -419,31 +418,6 @@ def _fake_mesh(sizes):
     """Rank 0 of a mesh of `sizes` with no process group: enough for every
     check made before a step."""
     return Mesh(("data", "y", "x"), sizes, 0, (None,) * 3, torch.device("cpu"))
-
-
-def test_uneven_level_refused():
-    """A UNet level that does not split evenly over y or x raises before
-    any step, naming the level and the sizes (GSPMD would pad it): 96^2 at
-    depth 4 has a 6-row level 4, not divisible by y=4."""
-    from helmnet_tpu_torch.distributed.spatial import Spatial
-
-    cfg = port_config(tiny_config())
-    cfg = cfg.replace(geometry=dataclasses.replace(cfg.geometry, domain_size=96))
-    with pytest.raises(ValueError, match="UNet level 4 of the 96x96 grid has H = 6"):
-        tloop.Trainer(cfg, mesh=_fake_mesh((1, 4, 1)), device="cpu")
-    with pytest.raises(ValueError, match="level 3 of the 32x32 grid has W = 4"):
-        Spatial(_fake_mesh((1, 1, 8)), 32, 32, 4)
-    Spatial(_fake_mesh((1, 2, 2)), 96, 96, 4)  # 6 rows over 2 ranks split
-
-
-def test_spatial_mesh_refuses_fft_and_other_architectures():
-    cfg = port_config(tiny_config())
-    with pytest.raises(ValueError, match="needs the matmul operator"):
-        tloop.Trainer(cfg.replace(operator_mode="fft"), mesh=_fake_mesh((1, 2, 1)),
-                      device="cpu")
-    resnet = cfg.replace(model=dataclasses.replace(cfg.model, architecture="resnet"))
-    with pytest.raises(ValueError, match="partitions the custom_unet only"):
-        tloop.Trainer(resnet, mesh=_fake_mesh((1, 1, 2)), device="cpu")
 
 
 def test_spatial_rollout_refuses_pallas_mode():

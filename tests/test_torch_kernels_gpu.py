@@ -912,3 +912,61 @@ def test_3d_rollout_gates(cuda):
     cpu.set_source_maps(src)
     np.testing.assert_allclose(rmse[:4], cpu.forward(sos, num_iterations=4)["rmse"].numpy(),
                                rtol=1e-3)
+
+
+def test_fft_operator_1024_against_matmul(cuda):
+    """The fft operator, which 'auto' takes from 1024^2 up, against the
+    matmul operator at 2 x 1024^2 within 1e-5 max|ref| (chip_smoke.py
+    phase 17a's bound)."""
+    from helmnet_tpu_torch.ops.spectral import helmholtz_residual, make_operator
+
+    n = 1024
+    op = make_operator(n, n, 8, 2.0, 1.0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    u, s = (torch.randn((2, n, n, 2), generator=gen, device=cuda) for _ in range(2))
+    k_sq = 0.5 + torch.rand((2, n, n), generator=gen, device=cuda)
+    ref = helmholtz_residual(op, u, k_sq, s, "matmul")
+    got = helmholtz_residual(op, u, k_sq, s, "fft")
+    assert bool(torch.isfinite(got).all())
+    assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_autograd_all_to_all_world_size_one(cuda):
+    """On an NCCL mesh of world size 1: the spatial partition's autograd
+    all-to-all is the identity both ways, and `laplacian(mode='fft',
+    spatial=)` and its input gradient equal the unsplit ones."""
+    import socket
+
+    import torch.distributed as dist
+
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.distributed import multihost
+    from helmnet_tpu_torch.distributed.spatial import Spatial, _AxisAllToAll
+    from helmnet_tpu_torch.ops.spectral import laplacian, laplacian_fft, make_operator
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, device=cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh(ParallelConfig(), device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        u, w = (torch.randn((2, 64, 96, 2), generator=gen, device=cuda) for _ in range(2))
+        x = u.clone().requires_grad_(True)
+        y = _AxisAllToAll.apply(x, mesh, "y", 2, 1)
+        y.backward(w)
+        assert torch.equal(y, u) and torch.equal(x.grad, w)
+        op = make_operator(64, 96, 8, 2.0, 1.0, device=cuda)
+        grads = []
+        for spatial in (None, Spatial(mesh, 64, 96, 0)):
+            x = u.clone().requires_grad_(True)
+            lap = (laplacian_fft(op, x) if spatial is None
+                   else laplacian(op, x, "fft", spatial=spatial))
+            torch.sum(lap * w).backward()
+            grads.append((lap.detach(), x.grad))
+        for got, ref in zip(grads[1], grads[0]):
+            assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    finally:
+        dist.destroy_process_group()

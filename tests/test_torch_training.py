@@ -56,6 +56,7 @@ def port_config(jcfg):
     """The port's Config with the same fields as a JAX Config."""
     return tconf.Config(
         max_iterations=jcfg.max_iterations,
+        operator_mode=jcfg.operator_mode,
         geometry=tconf.GeometryConfig(**dataclasses.asdict(jcfg.geometry)),
         model=tconf.ModelConfig(**dataclasses.asdict(jcfg.model)),
         source=tconf.SourceConfig(**dataclasses.asdict(jcfg.source)),

@@ -1,4 +1,5 @@
-"""Ranks of tests/test_torch_distributed.py: each runs as one gloo process
+"""Ranks of tests/test_torch_distributed.py and
+tests/test_torch_spatial_cases.py: each runs as one gloo process
 (torch.multiprocessing), imports no JAX, and rank 0 writes what it
 gathered to an npz that the test holds against the JAX package.
 
@@ -7,12 +8,16 @@ gathered to an npz that the test holds against the JAX package.
 `task` is "ops" (on 4 ranks: the halo, slab-FFT and z-slab residuals and
 norms, a data=4 train step and epoch, the spatial partition's halo pads
 against one-process convs, a (data=1, y=2, x=2) train step and epoch and
-a 4-step rollout on that mesh) or "train" (the train step and epoch
-alone, at data=world).
+a 4-step rollout on that mesh), "train" (the train step and epoch
+alone, at data=world) or "spatial" (on 4 ranks: the fft Laplacian on
+tiles with its gradient, train steps and epochs with the fft operator,
+the resnet and UNet levels that do not split, and GMRES on a split
+grid).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import socket
 
@@ -44,35 +49,156 @@ def tiny_config():
     )
 
 
-def train_results(mesh, inp) -> dict:
+def train_results(mesh, inp, case: str = "") -> dict:
     """One train step on the stored batch and one epoch from a filled
-    buffer, with `mesh` (None: one process); every value global."""
+    buffer, with `mesh` (None: one process); every value global. `case`
+    names a spatial case (`case_config`), whose params, batch and maps
+    the inputs hold under its name; "" is the tiny config."""
     from helmnet_tpu_torch.train.loop import Trainer
     from helmnet_tpu_torch.train.replay import ExperienceBatch
     from helmnet_tpu_torch.weights import load_params_npz
 
-    cfg = tiny_config()
-    params = load_params_npz(NPZ, cfg, device="cpu")
+    cfg = case_config(tiny_config(), case)
+    pre = f"{case}_" if case else ""
+    params = load_params_npz(str(inp.get(f"{pre}params_npz", NPZ)), cfg, device="cpu")
+    maps = inp.get(f"{pre}maps", inp["maps"])
+    batch_key = f"{pre}batch" if f"{pre}batch_indices" in inp else "batch"
     t = Trainer(cfg, params=params, mesh=mesh, device="cpu")
-    batch = ExperienceBatch(*(torch.from_numpy(inp[f"batch_{k}"]) for k in
+    batch = ExperienceBatch(*(torch.from_numpy(inp[f"{batch_key}_{k}"]) for k in
                               ExperienceBatch._fields[:-1]),
-                            inp["batch_indices"])
+                            inp[f"{batch_key}_indices"])
     metrics, evolved = t._train_step(batch, PICK)
     t2 = Trainer(cfg, params=params, mesh=mesh, device="cpu")
-    t2.fill_buffer(inp["maps"])
-    stats = t2.training_epoch(inp["maps"])
+    t2.fill_buffer(maps)
+    stats = t2.training_epoch(maps)
     return {
         "step_loss": float(metrics["loss"]),
         "step_rel_loss": float(metrics["rel_loss"]),
         "step_grad_norm": float(metrics["grad_norm"]),
         "step_wavefield": evolved["wavefield"].numpy(),
         "step_residual": evolved["residual"].numpy(),
+        "step_states": evolved["states"].numpy(),
         "step_outc_b": t.params["outc"]["b"].detach().numpy(),
         "epoch_loss": stats["train_loss_mean"],
         "epoch_new_sos": stats["new_sos"],
         "epoch_wavefield": t2.buffer.wavefield.copy(),
+        "epoch_states": t2.buffer.states.copy(),
         "epoch_iteration": t2.buffer.iteration.copy(),
     }
+
+
+# the spatial training cases: (name, mesh sizes); `case_config` makes
+# each one's config from the tiny config, in either package
+SPATIAL_TRAIN = (("fft", (1, 2, 2)), ("resnet", (1, 2, 2)), ("uneven", (1, 4, 1)),
+                 ("uneven48", (1, 4, 1)))
+
+
+def case_config(cfg, case: str):
+    """The tiny config (of either package) changed for a spatial case:
+    "fft" the fft operator; "resnet" the flat resnet; "uneven" as it is
+    (on (1, 4, 1) its 2-row level 4 does not split); "uneven48" at 48^2,
+    where levels 3 (6 rows) and 4 (3 rows) do not split over y = 4, so
+    the state of level 3 is whole along y."""
+    if case == "fft":
+        return cfg.replace(operator_mode="fft")
+    if case == "resnet":
+        return cfg.replace(model=dataclasses.replace(cfg.model, architecture="resnet"))
+    if case == "uneven48":
+        return cfg.replace(geometry=dataclasses.replace(cfg.geometry, domain_size=48))
+    return cfg
+
+
+# the fft Laplacian on tiles: each mesh at a grid whose pencils split
+# (all-to-all) and one whose do not (all-gather)
+FFT_CASES = (((1, 2, 2), ((32, 32), (26, 22))), ((1, 4, 1), ((32, 32), (24, 30))),
+             ((1, 1, 4), ((32, 32), (30, 24))))
+GMRES_N, GMRES_MODES = 64, ("matmul", "fft", "stencil")
+
+
+def gmres_problem():
+    """tests/test_stencil_distributed.py's sharded GMRES problem: 64^2,
+    PML 8, a 1.5 block in a unit medium, a point source; (sos, k_sq,
+    source channel pair), numpy."""
+    from helmnet_tpu_torch.ops.source import point_source_map
+
+    n = GMRES_N
+    sos = np.ones((n, n), np.float32)
+    sos[20:40, 16:52] = 1.5
+    return sos, (1.0 / sos) ** 2, point_source_map(n, n, (n - 12, n // 2), 10.0)
+
+
+def gmres_solve(mode: str, spatial=None):
+    """The problem solved by the port's GMRES (restart 60, 15 restarts,
+    tol 1e-6) with the spectral operator in `mode`, or the order-4
+    stencil operator; with `spatial`, on this rank's tiles. Returns (x,
+    residual norms) as numpy, x gathered."""
+    from helmnet_tpu_torch.ops.spectral import make_operator
+    from helmnet_tpu_torch.ops.stencil import make_stencil_operator
+    from helmnet_tpu_torch.solvers.gmres import solve_helmholtz
+
+    n = GMRES_N
+    _, k_sq, src = gmres_problem()
+    if mode == "stencil":
+        op = make_stencil_operator(n, n, 8, 2.0, 1.0, order=4, device="cpu")
+    else:
+        op = make_operator(n, n, 8, 2.0, 1.0, device="cpu")
+    k_sq, src = torch.from_numpy(k_sq), torch.from_numpy(src)
+    if spatial is not None:
+        k_sq, src = spatial.tile(k_sq, 0), spatial.tile(src, 0)
+    res = solve_helmholtz(op, k_sq, src, mode="auto" if mode == "stencil" else mode,
+                          restart=60, max_restarts=15, tol=1e-6, device="cpu",
+                          spatial=spatial)
+    x = res.x if spatial is None else spatial.gather(res.x, 0)
+    return x.numpy(), res.residual_norms.numpy()
+
+
+def fft_results() -> dict:
+    """`laplacian(mode='fft', spatial=)` on each mesh of FFT_CASES against
+    the one-process `laplacian_fft`: per grid, the largest difference of
+    the value and that of the input gradient of a random linear function
+    of it over the reference gradient's largest value."""
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+    from helmnet_tpu_torch.ops.spectral import laplacian, laplacian_fft, make_operator
+
+    out = {}
+    for sizes, grids in FFT_CASES:
+        mesh = make_mesh(ParallelConfig(*sizes), device="cpu")
+        errs = []
+        for h, w in grids:
+            rng = np.random.default_rng(h * w)
+            u, g = (torch.tensor(rng.standard_normal((2, h, w, 2)), dtype=torch.float32)
+                    for _ in range(2))
+            op = make_operator(h, w, 4, 2.0, 1.0, dense=False, device="cpu")
+            sp = Spatial(mesh, h, w, 0)
+            ref_u = u.clone().requires_grad_(True)
+            ref = laplacian_fft(op, ref_u)
+            torch.sum(ref * g).backward()
+            tile_u = sp.tile(u).clone().requires_grad_(True)
+            got = laplacian(op, tile_u, "fft", spatial=sp)
+            torch.sum(got * sp.tile(g)).backward()
+            errs.append([float((sp.gather(got.detach()) - ref.detach()).abs().max()),
+                         float((sp.gather(tile_u.grad) - ref_u.grad).abs().max()
+                               / ref_u.grad.abs().max())])
+        out[f"fft_{'x'.join(map(str, sizes))}"] = np.asarray(errs)
+    return out
+
+
+def spatial_results(inp) -> dict:
+    """The "spatial" task on 4 ranks."""
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+
+    out = fft_results()
+    for case, sizes in SPATIAL_TRAIN:
+        mesh = make_mesh(ParallelConfig(*sizes), device="cpu")
+        out.update({f"{case}_{k}": v for k, v in train_results(mesh, inp, case).items()})
+    sp = Spatial(make_mesh(ParallelConfig(1, 2, 2), device="cpu"), GMRES_N, GMRES_N, 0)
+    for mode in GMRES_MODES:
+        out[f"gmres_{mode}_x"], out[f"gmres_{mode}_norms"] = gmres_solve(mode, sp)
+    return out
 
 
 # (name, kernel width, stride, padding, tile sizes): every conv kind of
@@ -233,11 +359,14 @@ def _rank(rank: int, world: int, port: int, task: str, inputs: str, out: str):
             inp = dict(f)
         if task == "ops":
             res = ops_results(inp)
+        elif task == "spatial":
+            res = spatial_results(inp)
         else:
             mesh = make_mesh(ParallelConfig(data=world), device="cpu")
             res = {f"data{world}_{k}": v for k, v in train_results(mesh, inp).items()}
         # every rank holds the same global values: rank 0's, checked here
-        loss = torch.tensor([res[f"data{world}_step_loss"]], dtype=torch.float64)
+        key = "fft_step_loss" if task == "spatial" else f"data{world}_step_loss"
+        loss = torch.tensor([res[key]], dtype=torch.float64)
         ref = loss.clone()
         dist.broadcast(ref, 0)
         if not torch.equal(loss, ref):

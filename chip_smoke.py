@@ -17,7 +17,8 @@ remaining 2D entry points, the 3D solvers with the tpu3d_a and tpu3d_het
 weights, the distribution modules on NCCL, and the skull solve at
 512^2, `produce_figures`' compute path, the sanitizers and the dry run,
 and the 1024^2 train step and K1 rollout on the fft operator (the split
-grid's single-card end), and checks them all:
+grid's single-card end) and the CSLP-preconditioned GMRES on the split
+grid at 1024^2, and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -272,7 +273,22 @@ grid's single-card end), and checks them all:
    fft operator: K1 against its plain version at the 14 calls of a 1024^2
    step (each timed beside its plain version and bound), exactly 14 x 50
    K1 launches, the first 4 rmse within rtol 0.05 of a cuDNN f32 forward,
-   gridpoints/s and a 10-step profile.
+   gridpoints/s and a 10-step profile; K1's 14 calls are also timed beside
+   the cuDNN f32 DoubleConv (phase 5's library form);
+18. the CSLP preconditioner on the split grid at 1024^2
+   (`cslp_split_phase`; the multi-rank behaviour is held against the JAX
+   package on gloo ranks by tests/test_torch_spatial_cases.py), on an
+   NCCL mesh of world size 1: `make_shifted_laplace_inverse(...,
+   spatial=)` against the unsplit inverse on a seeded field within 1e-5
+   max|ref|; `solve_helmholtz(..., precond='shifted_laplace')`, GMRES(20)
+   x 10 at tol 1e-6, with the fft operator on the first map of
+   `make_dataset(24, 1024, seed=42)` and 17b's source, through `spatial=`
+   and without, and unpreconditioned: every true relative residual
+   finite, the split and unsplit histories within a factor 2 at every
+   cycle, the preconditioned final residual below the unpreconditioned
+   one, the reported final residual within rtol 1e-3 of one recomputed
+   with the matmul operator, no hand-kernel launch; each solve's wall and
+   the split solve's device time and busy share.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -391,6 +407,9 @@ SPLIT_TRAIN = dict(buffer_size=24, train_batch_size=2, unrolling_steps=2, remat=
 SPLIT_TRAIN_STEPS = 3
 SPLIT_TRAIN_RTOL = 1e-4  # 17b: step 1 against its matmul twin (phase 11's bound)
 SPLIT_MAPS, SPLIT_ITERS, SPLIT_PROFILE_STEPS = 4, 50, 10  # 17c
+CSLP_RESTART, CSLP_CYCLES, CSLP_TOL = 20, 10, 1e-6  # 18: the CSLP solves at 1024^2
+CSLP_RTOL = 1e-5  # 18: * max|ref|, the split inverse against the unsplit one
+CSLP_HISTORY = 2.0  # 18: split against unsplit true residual, at every cycle
 
 
 def log(msg: str) -> None:
@@ -517,6 +536,25 @@ def profile_steps(run, steps: int) -> dict:
                  "calls_per_step": c / steps} for n, us, c in kernels[:12]],
         "device_ms_by_name": {n: us / 1e3 / steps for n, us, _ in kernels},
     }
+
+
+@contextlib.contextmanager
+def world_of_one(dev):
+    """A torch.distributed process group of world size 1 on `dev` (NCCL on
+    a card) at a free localhost port; yields its backend and destroys the
+    group on the way out."""
+    import socket
+
+    from helmnet_tpu_torch.distributed import multihost
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, device=dev)
+    try:
+        yield torch.distributed.get_backend()
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def ptxas_table(log: str) -> list[dict]:
@@ -2367,8 +2405,6 @@ def distribution_phase(dev, cfg, params, hand_kernels) -> dict:
     unsharded function; (d) `put_global` / `fetch_global` round trips;
     (e) a data=1 mesh `Trainer` against the plain one over one epoch of 3
     steps under cuDNN's deterministic algorithms. No hand kernel runs."""
-    import socket
-
     import torch.distributed as dist
 
     from helmnet_tpu_torch.core.config import ParallelConfig
@@ -2383,12 +2419,8 @@ def distribution_phase(dev, cfg, params, hand_kernels) -> dict:
     from helmnet_tpu_torch.train.loop import Trainer
 
     t0 = time.perf_counter()
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    multihost.initialize(f"localhost:{port}", 1, 0, device=dev)
-    out = {"backend": dist.get_backend()}
-    try:
+    with world_of_one(dev) as backend:
+        out = {"backend": backend}
         if out["backend"] != "nccl":
             fail(f"the process group runs on {out['backend']}, not NCCL")
         reset_counts()
@@ -2477,8 +2509,6 @@ def distribution_phase(dev, cfg, params, hand_kernels) -> dict:
         launched = hand_kernels()
         if any(launched):
             fail(f"hand kernels launched on the distribution path: {launched}")
-    finally:
-        dist.destroy_process_group()
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 15 done in {out['seconds']:.1f} s")
     return out
@@ -2491,14 +2521,11 @@ def last_slice_phase(dev, cfg_kernel, cfg_cudnn, hand_kernels) -> dict:
     the card; (d) the dry run on one card. Every gate failure exits; the
     returned dict holds what was measured. `hand_kernels()` reads the
     launch counts of K2a, K2b, K2c, K1 and K3."""
-    import socket
-
     from helmnet_tpu_torch import dryrun
     from helmnet_tpu_torch.cli.produce_figures import skull_solve, truth_errors
     from helmnet_tpu_torch.core.config import Config
     from helmnet_tpu_torch.core.sanitize import checked
     from helmnet_tpu_torch.data.ellipses import make_dataset
-    from helmnet_tpu_torch.distributed import multihost
     from helmnet_tpu_torch.eval.harness import compare_solvers
     from helmnet_tpu_torch.models.hybridnet import iter_leaves
     from helmnet_tpu_torch.ops.double_conv import (double_conv_plain, fused_double_conv,
@@ -2718,16 +2745,10 @@ def last_slice_phase(dev, cfg_kernel, cfg_cudnn, hand_kernels) -> dict:
         f"{entry_err:.3e} (limit {DRYRUN_RTOL})")
     if not entry_err <= DRYRUN_RTOL:
         fail("dryrun.entry() on the card disagrees with the CPU")
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    multihost.initialize(f"localhost:{port}", 1, 0, device=dev)
-    try:
+    with world_of_one(dev):
         t = time.perf_counter()
         dryrun.dryrun_multichip(1, device=dev)
         dry_s = time.perf_counter() - t
-    finally:
-        torch.distributed.destroy_process_group()
     out["dryrun"] = {"entry_rel_err": entry_err, "multichip_s": dry_s}
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 16 done in {out['seconds']:.1f} s")
@@ -2745,13 +2766,11 @@ def split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernels) -> d
     on K1. Every gate failure exits; the returned dict holds what was
     measured. `hand_kernels()` reads the launch counts of K2a, K2b, K2c, K1
     and K3."""
-    import socket
-
     from helmnet_tpu_torch.core.config import ParallelConfig
     from helmnet_tpu_torch.core.meshes import make_mesh
     from helmnet_tpu_torch.data.ellipses import make_dataset
-    from helmnet_tpu_torch.distributed import multihost
     from helmnet_tpu_torch.distributed.spatial import Spatial, _AxisAllToAll
+    from helmnet_tpu_torch.models.blocks import conv2d, double_conv
     from helmnet_tpu_torch.ops.double_conv import (double_conv_plain, fused_double_conv,
                                                    prepare, tile_for)
     from helmnet_tpu_torch.ops.source import point_source_map
@@ -2778,12 +2797,7 @@ def split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernels) -> d
     modes_err = rel(r_fft, r_mm)
     ms = {mode: cuda_ms(lambda mode=mode: helmholtz_residual(op, u, k_sq, src, mode), 10,
                         graph=False) for mode in ("fft", "matmul", "fft", "matmul")}
-    with socket.socket() as sock:
-        sock.bind(("127.0.0.1", 0))
-        port = sock.getsockname()[1]
-    multihost.initialize(f"localhost:{port}", 1, 0, device=dev)
-    try:
-        backend = torch.distributed.get_backend()
+    with world_of_one(dev) as backend:
         mesh = make_mesh(ParallelConfig(), device=dev)
         sp = Spatial(mesh, n, n, 0)
         weights = rnd(b, n, n, 2)
@@ -2800,8 +2814,6 @@ def split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernels) -> d
         y = _AxisAllToAll.apply(x, mesh, "y", 2, 1)
         y.backward(weights)
         a2a_equal = bool(torch.equal(y, u) and torch.equal(x.grad, weights))
-    finally:
-        torch.distributed.destroy_process_group()
     log(f"phase 17a helmholtz_residual {b} x {n}^2: fft against matmul max|err| / "
         f"max|ref| {modes_err:.3e} (limit {SPLIT_RTOL}); device ms fft {ms['fft']:.4f}, "
         f"matmul {ms['matmul']:.4f}; laplacian(mode='fft', spatial=) on a {backend} mesh "
@@ -2885,13 +2897,20 @@ def split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernels) -> d
         if not (bool(torch.isfinite(got_out).all()) and err <= KERNEL_RTOL * scale_):
             fail(f"K1 disagrees with its plain version at {name}, {SPLIT_MAPS} x {m}^2")
         flops, ops_ms, bytes_ms, _ = bound(p, parts, got_out)
+
+        def library(p=p, parts=parts):  # phase 5's cuDNN f32 DoubleConv
+            x = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
+            y = double_conv(p, x, model.activation_function, "highest")
+            return conv2d(p["post"], y) if "post" in p else y
+
         rows.append(dict(name=name, grid=m, tile=list(tile_for(SPLIT_MAPS, m, m)),
                          max_abs_err=err, ms=cuda_ms(lambda: fused_double_conv(pw, parts), 10),
                          plain_ms=cuda_ms(lambda: double_conv_plain(p, parts), 10),
+                         library_ms=cuda_ms(library, 10),
                          bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms, bytes_ms=bytes_ms))
         del parts, ref_out, got_out
-    k1 = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "bound_ms", "ops_ms",
-                                               "bytes_ms")}
+    k1 = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                               "ops_ms", "bytes_ms")}
     k1["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     k1["bound_by"] = "operations" if k1["ops_ms"] >= k1["bytes_ms"] else "bytes"
     run = lambda cfg_, iters, collect=("rmse",): rollout(
@@ -2915,8 +2934,8 @@ def split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernels) -> d
         f"{counts}; rmse {rmse[0].max():.4e} -> {rmse[-1].max():.4e}, first 4 against "
         f"'xla' f32 max rel diff {early:.3e} (rtol {EARLY_RTOL}); K1 a step (14 calls at "
         f"{SPLIT_MAPS} x {n}^2 and below, max|err| {k1['max_abs_err']:.3e}): "
-        f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, bound {k1['bound_ms']:.4f} ms "
-        f"({k1['bound_by']}); profile of {SPLIT_PROFILE_STEPS} steps: wall "
+        f"{k1['ms']:.4f} ms, plain {k1['plain_ms']:.4f} ms, cuDNN {k1['library_ms']:.4f} "
+        f"ms, bound {k1['bound_ms']:.4f} ms ({k1['bound_by']}); profile of {SPLIT_PROFILE_STEPS} steps: wall "
         f"{prof['wall_ms_per_step']:.3f} ms, device {prof['device_ms_per_step']:.3f} ms "
         f"a step, busy share {prof['busy_share']:.4f}")
     if counts != (0, 0, 0, steps * SPLIT_ITERS, 0):
@@ -2928,6 +2947,105 @@ def split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernels) -> d
                       "k1_step": k1, "k1_calls": rows, "profile": prof}
     out["seconds"] = time.perf_counter() - t0
     log(f"phase 17 done in {out['seconds']:.1f} s")
+    return out
+
+
+def cslp_split_phase(dev, cfg, hand_kernels) -> dict:
+    """Phase 18: the CSLP preconditioner on the split grid's path at 1024^2
+    on an NCCL mesh of world size 1, where the exchanges are the identity
+    (its multi-rank behaviour is held against the JAX package on gloo
+    ranks by tests/test_torch_spatial_cases.py): the split inverse
+    against the unsplit one on a seeded field; `solve_helmholtz(...,
+    precond='shifted_laplace')` with the fft operator on phase 17b's first
+    map, through `spatial=` and without, and the same solve
+    unpreconditioned. Every gate failure exits; the returned dict holds
+    what was measured. `hand_kernels()` reads the launch counts of K2a,
+    K2b, K2c, K1 and K3: none runs here."""
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.data.ellipses import make_dataset
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+    from helmnet_tpu_torch.ops.source import point_source_map
+    from helmnet_tpu_torch.ops.spectral import helmholtz_residual, make_operator
+    from helmnet_tpu_torch.solvers.gmres import solve_helmholtz
+    from helmnet_tpu_torch.solvers.precond import make_shifted_laplace_inverse
+
+    t0 = time.perf_counter()
+    n, g, s = SPLIT_GRID, cfg.geometry, cfg.source
+    loc = tuple(int(round(c * n / g.domain_size)) for c in s.location)
+    sos = make_dataset(1, n, seed=42)[0]  # the first of phase 17b's maps
+    k_sq = torch.tensor((cfg.k0 / sos) ** 2, dtype=torch.float32, device=dev)
+    src = torch.tensor(point_source_map(n, n, loc, s.amplitude, s.phase, s.omega),
+                       device=dev)
+    bnorm = torch.linalg.vector_norm(src).item()
+    op = make_operator(n, n, g.pml_size, g.sigma_max, cfg.k0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(18)
+    v = torch.complex(*(torch.randn((n, n), generator=gen, device=dev) for _ in range(2)))
+
+    def solve(spatial, precond):
+        return solve_helmholtz(op, k_sq, src, mode="fft", restart=CSLP_RESTART,
+                               max_restarts=CSLP_CYCLES, tol=CSLP_TOL, precond=precond,
+                               device=dev, spatial=spatial)
+
+    with world_of_one(dev) as backend:
+        sp = Spatial(make_mesh(ParallelConfig(), device=dev), n, n, 0)
+        ref = make_shifted_laplace_inverse(op, k_sq)(v)
+        got = make_shifted_laplace_inverse(op, k_sq, spatial=sp)(v)
+        inv_err = (got - ref).abs().max().item() / ref.abs().max().item()
+        del v, ref, got
+        runs = {}
+        reset_counts()
+        for name, spatial, precond in (("split", sp, "shifted_laplace"),
+                                       ("whole", None, "shifted_laplace"),
+                                       ("none", None, "none")):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res = solve(spatial, precond)
+            torch.cuda.synchronize()
+            runs[name] = {"wall_s": time.perf_counter() - t,
+                          "relres": (res.residual_norms / bnorm).cpu().numpy()}
+            if name == "split":
+                x_split = res.x
+        launched = hand_kernels()
+        prof = profile_steps(
+            lambda k: [solve(sp, "shifted_laplace") for _ in range(k)], 1)
+    # the reported final residual against one recomputed with the matmul
+    # operator from the returned x = M^-1 y
+    true = torch.linalg.vector_norm(helmholtz_residual(
+        op, x_split[None], k_sq[None], src[None], mode="matmul")).item() / bnorm
+    split, whole, plain = (runs[k]["relres"] for k in ("split", "whole", "none"))
+    ratio = split / whole
+    true_gap = abs(true - split[-1]) / split[-1]
+    log(f"phase 18 CSLP on the split grid at {n}^2 ({backend} mesh of world size 1, "
+        f"fft operator, source {loc}): the split inverse against the unsplit one "
+        f"max|err| / max|ref| {inv_err:.3e} (limit {CSLP_RTOL}); GMRES({CSLP_RESTART}) x "
+        f"{CSLP_CYCLES} true relative residual split {split[-1]:.4e}, whole "
+        f"{whole[-1]:.4e}, unpreconditioned {plain[-1]:.4e}; split over whole at each "
+        f"cycle {ratio.min():.4f}..{ratio.max():.4f} (limit {CSLP_HISTORY}x); reported "
+        f"against recomputed (matmul) {true_gap:.3e} (rtol {RELRES_RTOL}); wall split "
+        f"{runs['split']['wall_s']:.3f} s, whole {runs['whole']['wall_s']:.3f} s, "
+        f"unpreconditioned {runs['none']['wall_s']:.3f} s; profile of the split solve: "
+        f"wall {prof['wall_ms_per_step']:.1f} ms, device {prof['device_ms_per_step']:.1f} "
+        f"ms, busy share {prof['busy_share']:.4f}; hand-kernel launches {launched}")
+    if backend != "nccl":
+        fail(f"the process group runs on {backend}, not NCCL")
+    if not inv_err <= CSLP_RTOL:
+        fail("the split CSLP inverse disagrees with the unsplit one at 1024^2")
+    if not all(np.isfinite(r["relres"]).all() for r in runs.values()):
+        fail("a CSLP solve at 1024^2 is not finite")
+    if not (np.all(ratio <= CSLP_HISTORY) and np.all(ratio >= 1 / CSLP_HISTORY)):
+        fail("the split CSLP solve's residual history departs from the unsplit one")
+    if not split[-1] < plain[-1]:
+        fail("the CSLP preconditioner did not lower the residual at 1024^2")
+    if not true_gap <= RELRES_RTOL:
+        fail("the split CSLP solve's reported residual is not its true one")
+    if any(launched):
+        fail(f"hand kernels launched on the CSLP path: {launched}")
+    out = {"inverse_rel_err": inv_err, "true_relres": true,
+           **{k: {"wall_s": r["wall_s"], "relres": r["relres"].tolist()}
+              for k, r in runs.items()},
+           "profile": prof, "seconds": time.perf_counter() - t0}
+    log(f"phase 18 done in {out['seconds']:.1f} s")
     return out
 
 
@@ -3586,6 +3704,9 @@ def main() -> int:
     # -- 17. the split grid's single-card end at 1024^2 ----------------------
     split = split_grid_phase(dev, cfg, cfg_kernel, cfg_cudnn, params, hand_kernel_counts)
 
+    # -- 18. the CSLP preconditioner on the split grid at 1024^2 ------------
+    cslp_split = cslp_split_phase(dev, cfg, hand_kernel_counts)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -3621,7 +3742,8 @@ def main() -> int:
         },
         # a step at 17c's 1024^2 x 4: the sum over its 14 calls
         "step_1024": {k: split["rollout"]["k1_step"][k]
-                      for k in ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err")},
+                      for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                "max_abs_err")},
     }, {
         "name": "packed_double_conv",
         "route": "cuda",
@@ -3711,7 +3833,7 @@ def main() -> int:
                            "profile": gmres_profile},
                        "training": training, "classical": classical,
                        "serving": serving, "solvers3d": solvers3d, "last_slice": last,
-                       "split_grid": split,
+                       "split_grid": split, "cslp_split": cslp_split,
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

@@ -76,12 +76,13 @@ def make_sharded_stencil_residual(mesh: Mesh, op: StencilPML):
     return residual
 
 
-def all_reduce_axes(t: torch.Tensor, mesh: Mesh, names) -> torch.Tensor:
-    """`psum` over the named mesh axes, in place."""
+def all_reduce_axes(t: torch.Tensor, mesh: Mesh, names,
+                    op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """`psum` (with `op` MAX, `pmax`) over the named mesh axes, in place."""
     for name in names:
         group = mesh.group(name)
         if group is not None:
-            dist.all_reduce(t, group=group)
+            dist.all_reduce(t, op=op, group=group)
     return t
 
 

@@ -23,8 +23,11 @@ hidden state. The communication is explicit:
   run there, and the inverse all-to-all goes back. Its backward is the
   inverse all-to-all. Where the other axis's tile does not split over
   the group, the axis is all-gathered instead and the rank keeps its own
-  slice of the result.
-* global means: local sums all-reduced over y and x (`Spatial.sum`).
+  slice of the result. The pencil's function is told which part of the
+  other axis's tile it holds, so that it can take the matching block of a
+  table (the CSLP inverse's symbol, solvers/precond.py).
+* global means and maxima: local sums (maxima) all-reduced over y and x
+  (`Spatial.sum`, `Spatial.max`).
 
 A UNet level whose H (or W) is not a multiple of the y (or x) axis size
 runs whole along that axis on every rank of it, as does every deeper
@@ -266,6 +269,11 @@ class Spatial:
         level-0 tile made global); no gradient."""
         return all_reduce_axes(t.detach().clone(), self.mesh, ("y", "x"))
 
+    def max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of `t` over the y and x ranks; no gradient."""
+        return all_reduce_axes(t.detach().clone(), self.mesh, ("y", "x"),
+                               dist.ReduceOp.MAX)
+
     def pad(self, x: torch.Tensor, lo: int, hi: int) -> torch.Tensor:
         """NHWC tile `x` with `lo` halo rows and columns before and `hi`
         after: the neighbouring tiles' cells, zeros beyond the domain."""
@@ -289,19 +297,22 @@ class Spatial:
         return _AxisGather.apply(u, dim, index, len(ranks), group)
 
     def whole_along(self, u: torch.Tensor, name: str, dim: int, other: int, fn):
-        """`fn` applied to `u` made whole along `dim` (mesh axis `name`),
-        and this rank's tile of its result: an all-to-all over the axis's
-        group trades the split of `dim` for a split of `other`, and the
-        inverse one comes back; both have their inverse as backward. When
-        `other`'s tile does not split over the group, `u` is all-gathered
-        along `dim` instead and the rank keeps its slice. `fn` must keep
-        the shape and act along `dim` only."""
+        """`fn(t, held)` applied to `u` made whole along `dim` (mesh axis
+        `name`), and this rank's tile of its result: an all-to-all over the
+        axis's group trades the split of `dim` for a split of `other`, and
+        the inverse one comes back; both have their inverse as backward.
+        When `other`'s tile does not split over the group, `u` is
+        all-gathered along `dim` instead and the rank keeps its slice.
+        `held` is the slice of this rank's tile along `other` that `t`
+        holds. `fn` must keep the shape and act along `dim` only."""
         index, ranks, _ = self._axes[name]
-        n = len(ranks)
+        n, size = len(ranks), u.shape[other]
         if n == 1:
-            return fn(u)
-        if u.shape[other] % n == 0:
+            return fn(u, slice(0, size))
+        if size % n == 0:
             t = _AxisAllToAll.apply(u, self.mesh, name, other, dim)
-            return _AxisAllToAll.apply(fn(t), self.mesh, name, dim, other)
-        size = u.shape[dim]
-        return fn(self.gather_axis(u, name, dim)).narrow(dim, index * size, size)
+            held = slice(index * size // n, (index + 1) * size // n)
+            return _AxisAllToAll.apply(fn(t, held), self.mesh, name, dim, other)
+        rows = u.shape[dim]
+        return (fn(self.gather_axis(u, name, dim), slice(0, size))
+                .narrow(dim, index * rows, rows))

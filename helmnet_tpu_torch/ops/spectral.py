@@ -202,7 +202,7 @@ def laplacian_fft(op: SpectralPML, u: torch.Tensor, spatial=None) -> torch.Tenso
         return torch.stack([out.real, out.imag], dim=-1)
 
     def term(axis):
-        def fn(p):
+        def fn(p, _held):
             t = _fft_term(_cplx(p), *axis)
             return torch.stack([t.real, t.imag], dim=-1)
         return fn

@@ -41,7 +41,9 @@ classical Gram-Schmidt run twice (CGS2, as the host FGMRES cycle of
 solvers/fgmres.py does): two all-reduces of its j + 1 inner products,
 where modified Gram-Schmidt needs j + 1 all-reduces in sequence. CGS2
 keeps the basis orthogonal to working precision, as MGS does; the
-trajectory differs from the unsplit one in rounding only.
+trajectory differs from the unsplit one in rounding only. The CSLP
+preconditioner runs there too: its inverse takes the whole grid's kref
+and transforms one axis at a time on pencils (solvers/precond.py).
 """
 
 from __future__ import annotations
@@ -266,16 +268,12 @@ def _solve(op, k_sq, b, *, mode, restart, max_restarts, tol, precond,
     if precond not in ("none", "shifted_laplace"):
         raise ValueError(f"unknown precond {precond!r} (use 'none' or "
                          f"'shifted_laplace')")
-    if precond != "none" and spatial is not None:
-        raise ValueError("precond='shifted_laplace' is not partitioned: its "
-                         "2D FFT inverse needs the whole grid; solve a split "
-                         "grid with precond='none'")
     mv = make_helmholtz_matvec(op, k_sq, mode, spatial)
     opts = dict(restart=restart, max_restarts=max_restarts, tol=tol,
                 spatial=spatial)
     if precond == "none":
         return gmres_restarted_batch(mv, b, **opts)
-    minv = make_shifted_laplace_inverse(op, k_sq, shift)
+    minv = make_shifted_laplace_inverse(op, k_sq, shift, spatial=spatial)
     res = gmres_restarted_batch(lambda v: mv(minv(v)), b, **opts)
     # right preconditioning: x = M^-1 y (M^-1 per problem, over the cycles)
     return res._replace(x=minv(res.x),
@@ -309,8 +307,8 @@ def solve_helmholtz(
 
     `spatial`: k_sq and source are this rank's tiles of a grid split over
     the mesh axes y and x, and so are x and the checkpoints; the residual
-    norms are the global ones (module docstring). Not with
-    precond='shifted_laplace'."""
+    norms are the global ones (module docstring). The CSLP inverse then
+    runs on pencils with the whole grid's kref (solvers/precond.py)."""
     dev = resolve_device(device)
     op = op.to(dev)
     k_sq = _on(k_sq, dev, torch.float32)

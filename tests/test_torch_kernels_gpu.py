@@ -970,3 +970,41 @@ def test_autograd_all_to_all_world_size_one(cuda):
             assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
     finally:
         dist.destroy_process_group()
+
+
+def test_cslp_inverse_split_world_size_one(cuda):
+    """On an NCCL mesh of world size 1: the CSLP inverse through `spatial=`
+    (pencil transforms, the grid's kref^2 completed over the mesh) against
+    the unsplit one at 1024^2 within 1e-5 max|ref|, for kref 'mean' and
+    'max' (chip_smoke.py phase 18's gate)."""
+    import socket
+
+    import torch.distributed as dist
+
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.distributed import multihost
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+    from helmnet_tpu_torch.ops.spectral import make_operator
+    from helmnet_tpu_torch.solvers.precond import make_shifted_laplace_inverse
+
+    n = 1024
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    multihost.initialize(f"localhost:{port}", 1, 0, device=cuda)
+    try:
+        assert dist.get_backend() == "nccl"
+        sp = Spatial(make_mesh(ParallelConfig(), device=cuda), n, n, 0)
+        op = make_operator(n, n, 8, 2.0, 1.0, dense=False, device=cuda)
+        gen = torch.Generator(device=cuda).manual_seed(18)
+        k_sq = 0.25 + torch.rand((2, n, n), generator=gen, device=cuda)
+        v = torch.complex(*(torch.randn((3, 2, n, n), generator=gen, device=cuda)
+                            for _ in range(2)))
+        for kref in ("mean", "max"):
+            ref = make_shifted_laplace_inverse(op, k_sq, kref=kref)(v)
+            got = make_shifted_laplace_inverse(op, k_sq, kref=kref, spatial=sp)(v)
+            assert got.shape == v.shape and bool(torch.isfinite(torch.view_as_real(got)).all())
+            assert (got - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+    finally:
+        dist.destroy_process_group()

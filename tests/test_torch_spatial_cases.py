@@ -26,7 +26,22 @@ numpy seeds. Bounds:
   most 10x the reference's and 1e-2 of the initial one, x within atol
   3e-2 * max|ref| (that test's bounds). The split solve orthogonalises
   by CGS2, the unsplit ones by MGS: their trajectories differ in
-  rounding, as the JAX test's sharded one does.
+  rounding, as the JAX test's sharded one does;
+- the CSLP inverse on tiles (`make_shifted_laplace_inverse(...,
+  spatial=)`) on the three meshes, at a grid whose pencils split and one
+  whose do not, with kref 'mean' and 'max', on the 64^2 problem's medium
+  and its twin with a fast block: the gathered result against the
+  one-process port's inverse and JAX's on the whole grid, atol 1e-5 *
+  max|ref|, and each rank's kref^2 against the grid's mean (float64) or
+  max, rtol 1e-6, and JAX's, whose f32 mean is itself about 1.45e-6 off
+  the exact one. The media are chosen so that a tile-local kref fails
+  (checked);
+- GMRES with the CSLP preconditioner on the 64^2 problem on (1, 2, 2),
+  restart 30, 5 restarts, with the matmul and the fft operator: the
+  bounds above against the one-process port and JAX's `solve_helmholtz`,
+  and every cycle's residual within a factor 2 of the one-process run's.
+  A right preconditioner changes the rate, not the solution, so the
+  inverse cases above are what hold the preconditioner itself.
 """
 
 import dataclasses
@@ -44,11 +59,13 @@ from helmnet_tpu.data.ellipses import make_dataset
 from helmnet_tpu.models import resnet as jres
 from helmnet_tpu.ops.spectral import make_operator as jmake_operator
 from helmnet_tpu.solvers import gmres as jgmres
+from helmnet_tpu.solvers import precond as jprecond
 from helmnet_tpu.train import loop as jloop
 from helmnet_tpu.train.checkpoint import save_params_npz
 from helmnet_tpu.train.replay import ExperienceBatch as JBatch
 from helmnet_tpu_torch.distributed.spatial import Spatial
-from helmnet_tpu_torch.solvers.gmres import solve_helmholtz
+from helmnet_tpu_torch.ops.spectral import make_operator
+from helmnet_tpu_torch.solvers.precond import make_shifted_laplace_inverse
 from helmnet_tpu_torch.train import loop as tloop
 from tests import torch_dist_workers as workers
 from tests.test_torch_distributed import (FIELDS, _epoch_matches, _fake_mesh, _run,
@@ -156,12 +173,13 @@ def _jax_run(inp, case, params):
     }
 
 
-def _jax_gmres(mode):
+def _jax_gmres(mode, precond="none"):
     _, k_sq, src = workers.gmres_problem()
     n = workers.GMRES_N
+    restart, cycles = workers.GMRES_RUNS[precond]
     res = jgmres.solve_helmholtz(jmake_operator(n, n, 8, 2.0, 1.0), jnp.asarray(k_sq),
-                                 jnp.asarray(src), mode=mode, restart=60,
-                                 max_restarts=15, tol=1e-6)
+                                 jnp.asarray(src), mode=mode, restart=restart,
+                                 max_restarts=cycles, tol=1e-6, precond=precond)
     return np.asarray(res.x), np.asarray(res.residual_norms)
 
 
@@ -169,16 +187,21 @@ def _jax_gmres(mode):
 def refs(inputs, started):
     """The JAX runs and the one-process port runs, made while the ranks
     run: {"jax": {case: run}, "one": {case: run}, "jax_gmres": {mode:
-    (x, norms)}, "one_gmres": {mode: (x, norms)}}."""
+    (x, norms)}, "one_gmres": {mode: (x, norms)}}, and the same for the
+    CSLP solves under "jax_cslp" and "one_cslp"."""
     inp, _, params = inputs
     out = {"jax": {case: _jax_run(inp, case, params[case]) for case in JAX_CASES},
-           "jax_gmres": {mode: _jax_gmres(mode) for mode in ("matmul", "fft")}}
+           "jax_gmres": {mode: _jax_gmres(mode) for mode in ("matmul", "fft")},
+           "jax_cslp": {mode: _jax_gmres(mode, "shifted_laplace")
+                        for mode in workers.CSLP_MODES}}
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
         out["one"] = {case: workers.train_results(None, inp, case) for case in MESHES}
         out["one_gmres"] = {mode: workers.gmres_solve(mode)
                             for mode in workers.GMRES_MODES}
+        out["one_cslp"] = {mode: workers.gmres_solve(mode, precond="shifted_laplace")
+                           for mode in workers.CSLP_MODES}
     finally:
         torch.set_num_threads(threads)
     return out
@@ -276,24 +299,96 @@ def test_spatial_accepts_levels_that_do_not_split():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("mode", workers.GMRES_MODES)
-def test_gmres_on_split_grid(mode, ops, refs):
-    x, norms = ops[f"gmres_{mode}_x"], ops[f"gmres_{mode}_norms"]
-    refs_here = [refs["one_gmres"][mode]]
-    if mode in refs["jax_gmres"]:
-        refs_here.append(refs["jax_gmres"][mode])
+def _solve_matches(x, norms, refs_here):
+    """test_stencil_distributed.py's bounds for a split GMRES solve."""
     assert norms[-1] <= norms[0] * 1e-2, norms
     for rx, rn in refs_here:
         assert norms[-1] <= rn[-1] * 10, (norms, rn)
         np.testing.assert_allclose(x, rx, atol=3e-2 * np.abs(rx).max())
 
 
-def test_gmres_split_grid_refuses_shifted_laplace():
-    """The CSLP preconditioner's 2D FFT inverse is not partitioned."""
-    from helmnet_tpu_torch.ops.spectral import make_operator
+@pytest.mark.parametrize("mode", workers.GMRES_MODES)
+def test_gmres_on_split_grid(mode, ops, refs):
+    refs_here = [refs["one_gmres"][mode]]
+    if mode in refs["jax_gmres"]:
+        refs_here.append(refs["jax_gmres"][mode])
+    _solve_matches(ops[f"gmres_{mode}_x"], ops[f"gmres_{mode}_norms"], refs_here)
 
-    sp = Spatial(_fake_mesh((1, 2, 1)), 32, 32, 0)
-    op = make_operator(32, 32, 4, 2.0, 1.0, device="cpu")
-    with pytest.raises(ValueError, match="shifted_laplace' is not partitioned"):
-        solve_helmholtz(op, torch.ones(16, 32), torch.ones(16, 32, 2),
-                        precond="shifted_laplace", device="cpu", spatial=sp)
+
+@pytest.mark.parametrize("mode", workers.CSLP_MODES)
+def test_cslp_gmres_on_split_grid(mode, ops, refs):
+    """The CSLP-preconditioned solve on (1, 2, 2): the bounds of the
+    unpreconditioned one, and each cycle's true residual within a factor
+    2 of the one-process run's."""
+    norms = ops[f"cslp_gmres_{mode}_norms"]
+    one_x, one_norms = refs["one_cslp"][mode]
+    _solve_matches(ops[f"cslp_gmres_{mode}_x"], norms,
+                   [(one_x, one_norms), refs["jax_cslp"][mode]])
+    ratio = norms / one_norms
+    assert np.all((ratio <= 2) & (ratio >= 0.5)), (norms, one_norms)
+
+
+# ---------------------------------------------------------------------------
+# the CSLP inverse on tiles
+# ---------------------------------------------------------------------------
+
+
+def _tiles(a, ny, nx):
+    """The ny x nx tiles of a [..., h, w] array, [..., ny, nx, h/ny, w/nx]."""
+    h, w = a.shape[-2:]
+    t = a.reshape(a.shape[:-2] + (ny, h // ny, nx, w // nx))
+    return np.moveaxis(t, -3, -2)
+
+
+def test_cslp_cases_take_both_routes_and_tell_local_kref():
+    """CSLP_CASES' first grid of each mesh takes the all-to-all route on
+    every pencil it splits, its second the all-gather route; on some tile
+    the first medium's mean and the second's max differ from the grid's by
+    more than 10%, so a tile-local kref fails the inverse's test."""
+    mean_gap = max_gap = 0.0
+    for (_, ny, nx), grids in workers.CSLP_CASES:
+        for route, (h, w) in enumerate(grids):
+            th, tw = h // ny, w // nx
+            # x-pencils split the tile's rows over nx, y-pencils its columns over ny
+            splits = [size % n == 0 for size, n in ((th, nx), (tw, ny)) if n > 1]
+            assert splits and all(s == (route == 0) for s in splits), (ny, nx, h, w)
+            k_sq, _ = workers.cslp_inputs(h, w)
+            tiles = _tiles(k_sq, ny, nx)
+            mean_gap = max(mean_gap, np.abs(tiles[0].mean((-2, -1)) / k_sq[0].mean() - 1).max())
+            max_gap = max(max_gap, np.abs(tiles[1].max((-2, -1)) / k_sq[1].max() - 1).max())
+    assert mean_gap > 0.1 and max_gap > 0.1, (mean_gap, max_gap)
+
+
+@pytest.mark.parametrize("kref", workers.CSLP_KREFS)
+@pytest.mark.parametrize("route", [0, 1], ids=["all_to_all", "all_gather"])
+@pytest.mark.parametrize("mesh", ["1x2x2", "1x4x1", "1x1x4"])
+def test_cslp_inverse_on_tiles(mesh, route, kref, ops):
+    """The split inverse, gathered, against the one-process port's and
+    JAX's on the whole grid (atol 1e-5 * max|ref|), and every rank's
+    kref^2 against the grid's exact one (float64, rtol 1e-6) and JAX's
+    (rtol 1e-6 beyond JAX's own distance from the exact one), for both
+    media."""
+    grids = dict(("x".join(map(str, sizes)), g) for sizes, g in workers.CSLP_CASES)
+    h, w = grids[mesh][route]
+    key = f"cslp_{mesh}_{route}_{kref}"
+    k_sq, v = workers.cslp_inputs(h, w)
+    one = make_shifted_laplace_inverse(
+        make_operator(h, w, 8, 2.0, 1.0, dense=False, device="cpu"),
+        torch.from_numpy(k_sq), kref=kref)(torch.from_numpy(v)).numpy()
+    jop = jmake_operator(h, w, 8, 2.0, 1.0)
+    jax_x = np.stack([np.asarray(jprecond.make_shifted_laplace_inverse(
+        jop, jnp.asarray(k), kref=kref)(jnp.asarray(v[:, b])))
+        for b, k in enumerate(k_sq)], axis=1)
+    jax_kref2 = np.asarray([jnp.mean(k) if kref == "mean" else jnp.max(k) for k in k_sq])
+    exact = k_sq.astype(np.float64).mean((-2, -1)) if kref == "mean" else k_sq.max((-2, -1))
+    got = ops[f"{key}_x"]
+    assert got.shape == v.shape
+    for ref in (one, jax_x):
+        np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5 * np.abs(ref).max())
+    kref2 = ops[f"{key}_kref2"]
+    assert kref2.shape == (4, 2)
+    np.testing.assert_allclose(kref2, np.broadcast_to(exact, kref2.shape), rtol=1e-6)
+    # JAX's f32 mean carries its own rounding: about 1.45e-6 of the exact
+    # mean of the first medium on the CPU (numpy's and torch's, 1e-7)
+    jax_off = np.abs(jax_kref2 / exact - 1)
+    assert np.all(np.abs(kref2 / jax_kref2 - 1) <= 1e-6 + jax_off), (kref2, jax_kref2)

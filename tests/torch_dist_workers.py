@@ -11,8 +11,8 @@ against one-process convs, a (data=1, y=2, x=2) train step and epoch and
 a 4-step rollout on that mesh), "train" (the train step and epoch
 alone, at data=world) or "spatial" (on 4 ranks: the fft Laplacian on
 tiles with its gradient, train steps and epochs with the fft operator,
-the resnet and UNet levels that do not split, and GMRES on a split
-grid).
+the resnet and UNet levels that do not split, the CSLP inverse on tiles,
+and GMRES on a split grid, with and without the CSLP preconditioner).
 """
 
 from __future__ import annotations
@@ -113,6 +113,24 @@ def case_config(cfg, case: str):
 FFT_CASES = (((1, 2, 2), ((32, 32), (26, 22))), ((1, 4, 1), ((32, 32), (24, 30))),
              ((1, 1, 4), ((32, 32), (30, 24))))
 GMRES_N, GMRES_MODES = 64, ("matmul", "fft", "stencil")
+# restart and cycles of each preconditioner's solve; the CSLP solve stops
+# far above f32's floor (about 2e-6 relative), so that its histories
+# compare cycle by cycle
+GMRES_RUNS = {"none": (60, 15), "shifted_laplace": (30, 5)}
+CSLP_MODES = ("matmul", "fft")
+# the CSLP inverse on tiles: each mesh at a grid whose pencils split
+# (all-to-all) and one whose do not (all-gather), both kref modes
+CSLP_CASES = (((1, 2, 2), ((64, 64), (62, 58))), ((1, 4, 1), ((64, 64), (64, 62))),
+              ((1, 1, 4), ((64, 64), (62, 64))))
+CSLP_KREFS = ("mean", "max")
+
+
+def block_medium(h: int, w: int, block_sos: float = 1.5) -> np.ndarray:
+    """sos [h, w]: a unit medium with a block of `block_sos` on [20:40,
+    16:52] (tests/test_stencil_distributed.py's medium at 64^2)."""
+    sos = np.ones((h, w), np.float32)
+    sos[20:40, 16:52] = block_sos
+    return sos
 
 
 def gmres_problem():
@@ -122,16 +140,59 @@ def gmres_problem():
     from helmnet_tpu_torch.ops.source import point_source_map
 
     n = GMRES_N
-    sos = np.ones((n, n), np.float32)
-    sos[20:40, 16:52] = 1.5
+    sos = block_medium(n, n)
     return sos, (1.0 / sos) ** 2, point_source_map(n, n, (n - 12, n // 2), 10.0)
 
 
-def gmres_solve(mode: str, spatial=None):
-    """The problem solved by the port's GMRES (restart 60, 15 restarts,
-    tol 1e-6) with the spectral operator in `mode`, or the order-4
-    stencil operator; with `spatial`, on this rank's tiles. Returns (x,
-    residual norms) as numpy, x gathered."""
+def cslp_inputs(h: int, w: int):
+    """The CSLP inverse's inputs on an h x w grid: k^2 [2, h, w] of
+    gmres_problem's medium (its tile means differ from the grid's) and of
+    its twin with a fast block (sos 1 / 1.5: its tile maxima differ from
+    the grid's), and a seeded complex64 field [3, 2, h, w] (three stacked
+    vectors of the two problems, as the solve's checkpoints are); numpy."""
+    k_sq = np.stack([(1.0 / block_medium(h, w, s)) ** 2 for s in (1.5, 1 / 1.5)])
+    rng = np.random.default_rng(h * w)
+    v = rng.standard_normal((2, 3, 2, h, w))
+    return k_sq.astype(np.float32), (v[0] + 1j * v[1]).astype(np.complex64)
+
+
+def cslp_results() -> dict:
+    """`make_shifted_laplace_inverse(..., spatial=)` on each mesh and grid
+    of CSLP_CASES and each kref: the gathered result [3, 2, h, w] and each
+    rank's kref^2 [world, 2], under `cslp_{mesh}_{route}_{kref}_{x|kref2}`
+    (route 0: the grid whose pencils split, 1: the one whose do not)."""
+    from helmnet_tpu_torch.core.config import ParallelConfig
+    from helmnet_tpu_torch.core.meshes import make_mesh
+    from helmnet_tpu_torch.distributed.spatial import Spatial
+    from helmnet_tpu_torch.ops.spectral import make_operator
+    from helmnet_tpu_torch.solvers.precond import (make_shifted_laplace_inverse,
+                                                   reference_k2)
+
+    out = {}
+    for sizes, grids in CSLP_CASES:
+        mesh = make_mesh(ParallelConfig(*sizes), device="cpu")
+        for route, (h, w) in enumerate(grids):
+            k_sq, v = (torch.from_numpy(a) for a in cslp_inputs(h, w))
+            op = make_operator(h, w, 8, 2.0, 1.0, dense=False, device="cpu")
+            sp = Spatial(mesh, h, w, 0)
+            k_tile = sp.tile(k_sq)
+            for kref in CSLP_KREFS:
+                key = f"cslp_{'x'.join(map(str, sizes))}_{route}_{kref}"
+                minv = make_shifted_laplace_inverse(op, k_tile, kref=kref, spatial=sp)
+                got = torch.view_as_real(minv(sp.tile(v, 2)))
+                out[f"{key}_x"] = torch.view_as_complex(sp.gather(got, 2)).numpy()
+                kref2 = reference_k2(k_tile, kref, sp).reshape(-1)
+                ranks = [torch.empty_like(kref2) for _ in range(dist.get_world_size())]
+                dist.all_gather(ranks, kref2)
+                out[f"{key}_kref2"] = torch.stack(ranks).numpy()
+    return out
+
+
+def gmres_solve(mode: str, spatial=None, precond: str = "none"):
+    """The problem solved by the port's GMRES (GMRES_RUNS' restart and
+    cycles for `precond`, tol 1e-6) with the spectral operator in `mode`,
+    or the order-4 stencil operator; with `spatial`, on this rank's
+    tiles. Returns (x, residual norms) as numpy, x gathered."""
     from helmnet_tpu_torch.ops.spectral import make_operator
     from helmnet_tpu_torch.ops.stencil import make_stencil_operator
     from helmnet_tpu_torch.solvers.gmres import solve_helmholtz
@@ -145,9 +206,10 @@ def gmres_solve(mode: str, spatial=None):
     k_sq, src = torch.from_numpy(k_sq), torch.from_numpy(src)
     if spatial is not None:
         k_sq, src = spatial.tile(k_sq, 0), spatial.tile(src, 0)
+    restart, cycles = GMRES_RUNS[precond]
     res = solve_helmholtz(op, k_sq, src, mode="auto" if mode == "stencil" else mode,
-                          restart=60, max_restarts=15, tol=1e-6, device="cpu",
-                          spatial=spatial)
+                          restart=restart, max_restarts=cycles, tol=1e-6,
+                          precond=precond, device="cpu", spatial=spatial)
     x = res.x if spatial is None else spatial.gather(res.x, 0)
     return x.numpy(), res.residual_norms.numpy()
 
@@ -198,6 +260,10 @@ def spatial_results(inp) -> dict:
     sp = Spatial(make_mesh(ParallelConfig(1, 2, 2), device="cpu"), GMRES_N, GMRES_N, 0)
     for mode in GMRES_MODES:
         out[f"gmres_{mode}_x"], out[f"gmres_{mode}_norms"] = gmres_solve(mode, sp)
+    for mode in CSLP_MODES:
+        out[f"cslp_gmres_{mode}_x"], out[f"cslp_gmres_{mode}_norms"] = gmres_solve(
+            mode, sp, "shifted_laplace")
+    out.update(cslp_results())
     return out
 
 

@@ -7,7 +7,7 @@ Drives the learned 2D solve at 96^2 x batch 32 x 500 iterations through
 `IterativeSolver.forward` with the fused DoubleConv kernel K1, the
 channel-packed solve at 256^2 x 16 x 50 through `rollout_packed` with the
 packed fused DoubleConv kernel K3 (and at 256^2 x 32 x 50, g = 32, with
-K3's wide instances), the FD-stencil residual kernels K2a-c
+K3's cluster instance), the FD-stencil residual kernels K2a-c
 at bench.py's 512^2 x 8, batched GMRES on the stencil operator at
 256^2 x 16, unsupervised replay-buffer training at 96^2 x 32 with 10 unrolled
 steps, and the classical solvers (learned-preconditioned FGMRES,
@@ -52,12 +52,17 @@ grid at 1024^2, and checks them all:
    step at 256^2, g = 16 (the trained weights packed by `pack_params`,
    seeded random inputs), within atol 2e-2 * max|ref|, each with its tile,
    beside its plain version, the cuDNN f32 DoubleConv and its bound, with
-   its TFLOP/s, share of the bound and time at the other tile; 6b: the
+   its TFLOP/s, share of the bound and time at the other tiles; 6b: the
    same at the 14 calls of a g = 32 and a g = 64 step at 256^2 (mid and
-   out widths 256 and 512: K3's wide instances, and the 128-wide ones at
-   the state convs), each call timed in a graph of 10; in 6 and 6b the
-   NaN gate at the first call of each instance (128-wide, wide) at each
-   of its tiles (the packed block-diagonal weights carry the NaN to every
+   out widths 256 and 512: K3's cluster instance, and the 128-wide one at
+   the state convs), each call timed in a graph of 10, each with its
+   cluster size, CTAs, and the weight bytes the design reads from L2 (a
+   model, `k3_design_bytes`: tiles x the prepared w1, w2 and w3; not
+   measured) with the rate that implies, beside a probe of the card's
+   read rate from a tensor that fits the L2 (`l2_read_tb_s`); in 6 and
+   6b the NaN gate
+   at the first call of each instance (128-wide, cluster) at each of its
+   tiles (the packed block-diagonal weights carry the NaN to every
    problem of the pack, in the kernel as in the plain version);
 7. the packed path: `rollout_packed` on the 16 maps of
    datasets/eval256/maps.npz, g = 16, 50 iterations (bench.py:234) in
@@ -564,13 +569,13 @@ def ptxas_table(log: str) -> list[dict]:
 
     rows, cur = [], None
     for line in log.splitlines():
-        m = re.search(r"Compiling entry function '\S*?(packed_double_conv|wide_double_conv"
+        m = re.search(r"Compiling entry function '\S*?(packed_double_conv|cluster_double_conv"
                       r"|double_conv|stencil_residual)_kernelI((?:Li\d+E)+)E", line)
         if m:
-            cur = {"kernel": {"packed_double_conv": "K3", "wide_double_conv": "K3",
+            cur = {"kernel": {"packed_double_conv": "K3", "cluster_double_conv": "K3",
                               "double_conv": "K1",
                               "stencil_residual": "K2"}[m.group(1)],
-                   "wide": m.group(1) == "wide_double_conv",
+                   "wide": m.group(1) == "cluster_double_conv",
                    "args": [int(a) for a in re.findall(r"Li(\d+)E", m.group(2))],
                    "spill_stores": 0, "spill_loads": 0, "smem": 0}
             continue
@@ -656,6 +661,13 @@ def packed_bound(pw, parts, out) -> tuple[float, float, float, float]:
               + 2.0 * macs + 4.0 * (pw.cm + pw.co + pw.ce + 1))
     return (flops, 1e3 * flops / PEAK_BF16_FLOPS, 1e3 * nbytes / PEAK_BYTES_S,
             1e3 * flops / PEAK_F32_FLOPS)
+
+
+def k3_design_bytes(pw, tiles: int) -> int:
+    """The weight bytes a K3 call reads from L2 if each of its `tiles`
+    output tiles reads the prepared w1, w2 and w3 once (a cluster's CTAs
+    each their slice): a model of the design, not a measured count."""
+    return tiles * sum(2 * w.numel() for w in (pw.w1, pw.w2, pw.w3) if w is not None)
 
 
 def stencil_bound(radius: int, b: int, h: int, w: int,
@@ -2232,18 +2244,37 @@ def nan_gate(tag: str, label: str, launch, params, parts, seed: int) -> dict:
                 max_abs_err=err, atol=atol)
 
 
+def l2_read_tb_s(mib: int = 16, reads: int = 16, iters: int = 20) -> float:
+    """A probe of the card's read rate from a tensor that fits the L2, in
+    TB/s: `mib` MiB of f32 (well inside the 50 MB L2) read `reads` times
+    by one kernel (the row sums of a [reads, rows, 4096] view that repeats
+    it, stride 0 over its first dimension), `iters` calls in a CUDA graph
+    (`cuda_ms`); the bytes read over the mean time of a call. One read a
+    call would measure the launch: 16 MiB take about 4.6 us. The repeats
+    of a row come `mib` MiB of reads apart, beyond an SM's 256 KB L1, but
+    nothing here tells an L1 hit from an L2 hit: the reading is the rate
+    this probe got, not a measured ceiling of the L2."""
+    x = torch.ones(mib * 2**20 // 4, dtype=torch.float32, device="cuda").view(-1, 4096)
+    rows = x.expand(reads, *x.shape)
+    ms = cuda_ms(lambda: rows.sum(dim=2), iters)
+    return reads * x.numel() * 4 / ms / 1e9
+
+
 def k3_calls(tag: str, kparams, model, n: int, gen, dev, gates: list,
              iters: int = 50) -> list:
     """K3 against its plain version at the 14 calls of one packed step
     (batch 1 at n^2, seeded random inputs, the weights `prepare_k3` made),
     within atol 2e-2 * max|ref|; at the first call of each instance (128-wide
-    or wide), the NaN gate at each of its tiles, appended to `gates`; then
-    each call timed (a CUDA graph of `iters` calls) at its tile and at the
-    instance's other tile, beside its plain version, the cuDNN f32
-    DoubleConv and its bound."""
+    or cluster), the NaN gate at each of its tiles, appended to `gates`;
+    then each call timed (a CUDA graph of `iters` calls) at its tile and at
+    the instance's other tiles, beside its plain version, the cuDNN f32
+    DoubleConv and its bound; with its cluster size (1: the 128-wide
+    instance), CTAs, and `k3_design_bytes` (a model, not measured) and
+    that over the kernel's time."""
     from helmnet_tpu_torch.models.blocks import conv2d, double_conv
     from helmnet_tpu_torch.ops.double_conv import double_conv_plain
-    from helmnet_tpu_torch.ops.packed_double_conv import (packed_double_conv, tile_for,
+    from helmnet_tpu_torch.ops.packed_double_conv import (cluster_size, ctas,
+                                                          packed_double_conv, tile_for,
                                                           tiles_for)
 
     rows, gated = [], set()
@@ -2278,10 +2309,12 @@ def k3_calls(tag: str, kparams, model, n: int, gen, dev, gates: list,
 
         kernel_ms = cuda_ms(lambda: packed_double_conv(pw, parts), iters)
         tile = tile_for(1, n_, n_, pw.cmp, pw.cop, pw.ce)
-        alts = [t for t in tiles_for(pw.cmp, pw.cop, pw.ce) if t != tile]
-        alt = alts[0] if alts else None  # the tile not chosen
-        alt_ms = (cuda_ms(lambda: packed_double_conv(pw, parts, tile=alt), iters)
-                  if alt else None)
+        alt_ms = {f"{t[0]}x{t[1]}": cuda_ms(
+                      lambda t=t: packed_double_conv(pw, parts, tile=t), iters)
+                  for t in tiles_for(pw.cmp, pw.cop, pw.ce) if t != tile}
+        cluster = cluster_size(pw.cmp, pw.cop, pw.ce)
+        n_ctas = ctas(1, n_, n_, tile, pw.cmp, pw.cop, pw.ce)
+        design_bytes = k3_design_bytes(pw, n_ctas // cluster)
         plain_ms = cuda_ms(lambda: double_conv_plain(fp, parts), iters)
         library_ms = cuda_ms(library, iters)
         flops, ops_ms, bytes_ms, cuda_core_ms = packed_bound(pw, parts, got)
@@ -2293,18 +2326,22 @@ def k3_calls(tag: str, kparams, model, n: int, gen, dev, gates: list,
             bound_ms=bound_ms, bound_by=bound_by, ops_ms=ops_ms, bytes_ms=bytes_ms,
             cuda_core_ms=cuda_core_ms, max_abs_err=err, gflops=flops / 1e9,
             tflops=flops / kernel_ms / 1e9, tile=list(tile), wide=pw.wide,
-            bound_share=bound_ms / kernel_ms, alt_tile=list(alt) if alt else None,
-            alt_ms=alt_ms))
+            bound_share=bound_ms / kernel_ms, alt_ms=alt_ms, cluster=cluster,
+            ctas=n_ctas, design_l2_bytes=design_bytes,
+            design_l2_tb_s=design_bytes / kernel_ms / 1e9))
         log(f"phase {tag} {name:20s} tile {tile[0]}x{tile[1]}: K3 {kernel_ms:.4f} ms "
             f"({flops / kernel_ms / 1e9:.1f} TFLOP/s, {bound_ms / kernel_ms:.3f} of "
             f"its bound), plain {plain_ms:.4f} ms, cuDNN {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core {cuda_core_ms:.4f} ms"
-            + (f"; at tile {alt[0]}x{alt[1]} {alt_ms:.4f} ms" if alt else ""))
+            f"{bound_ms:.4f} ms ({bound_by}), f32 CUDA-core {cuda_core_ms:.4f} ms; "
+            f"cluster {cluster}, {n_ctas} CTAs, design weight bytes from L2 "
+            f"{design_bytes / 1e9:.3f} GB (a model) at {design_bytes / kernel_ms / 1e9:.3f} TB/s"
+            + "".join(f"; at tile {k} {v:.4f} ms" for k, v in alt_ms.items()))
         del parts, ref, got
     total = lambda k: sum(r[k] for r in rows)
     log(f"phase {tag} a packed step at {n}^2 ({len(rows)} calls): K3 {total('ms'):.4f} "
         f"ms, plain {total('plain_ms'):.4f} ms, cuDNN {total('library_ms'):.4f} ms, "
-        f"bound {total('bound_ms'):.4f} ms, {total('gflops'):.1f} GFLOP")
+        f"bound {total('bound_ms'):.4f} ms, {total('gflops'):.1f} GFLOP, design weight "
+        f"bytes from L2 {total('design_l2_bytes') / 1e9:.3f} GB (a model)")
     return rows
 
 
@@ -2379,7 +2416,7 @@ def wide_packed_phase(dev, cfg_kernel, cfg_cudnn, params, hand_kernels) -> dict:
     wall_s = time.perf_counter() - t
     prof = profile_steps(packed_run, WIDE_PROFILE_STEPS)
     k3_ms = sum(v for k, v in prof["device_ms_by_name"].items()
-                if "packed_double_conv" in k or "wide_double_conv" in k)
+                if "packed_double_conv" in k or "cluster_double_conv" in k)
     log(f"phase 7b {len(maps)} x {n}^2 x {iters} at g={g}: {wall_s:.3f} s, "
         f"{len(maps) * n * n * iters / wall_s:.4e} gridpoints/s; profile of "
         f"{WIDE_PROFILE_STEPS} steps: wall {prof['wall_ms_per_step']:.4f} ms/step, "
@@ -3091,15 +3128,14 @@ def main() -> int:
         f"output: `build_log` of --out)")
     lib = _build.load_library()
     # K1: <TH, TW, warps, CS, CMP, COP>; K3: <TH, TW, CMP, COP, stages>,
-    # the wide K3: <TH, TW, stages, largest head>, whose shared memory is
-    # dynamic (hn_packed_double_conv_smem; the wide ones' at their widest
-    # mid tile); K2: <radius, instance> (0 scalar, 1 planes, 2 pairs)
+    # the cluster K3: <TH, TW, stages>, its shared memory a CTA the same at
+    # every width; K3's is dynamic (hn_packed_double_conv_smem); K2:
+    # <radius, instance> (0 scalar, 1 planes, 2 pairs)
     resources = ptxas_table(built.log)
     for r in resources:
         if r["kernel"] == "K3":
             th, tw = r["args"][:2]
-            cmp_, cop_ = ((512 if th == 4 else 256,) * 2 if r["wide"]
-                          else r["args"][2:4])
+            cmp_, cop_ = (256, 256) if r["wide"] else r["args"][2:4]
             r["smem"] = lib.hn_packed_double_conv_smem(K3_TILES.index((th, tw)),
                                                        cmp_, cop_)
         log(f"phase 2 {r['kernel']} <{', '.join(map(str, r['args']))}>: "
@@ -3258,7 +3294,11 @@ def main() -> int:
     g, n_pack = PACK_G, PACK_GRID
     kparams = prepare_k3(pack_params(params, g), model, g, inc_splits=(2, 2, 2))
     k3_rows = k3_calls("6", kparams, model, n_pack, gen, dev, nan_gates)
-    # 6b: the wide instances at the 14 calls of a g = 32 and a g = 64 step
+    # 6b: the cluster instance at the 14 calls of a g = 32 and a g = 64 step,
+    # beside the card's L2 read rate
+    l2_rate = l2_read_tb_s()
+    log(f"phase 6b L2 read probe: {l2_rate:.3f} TB/s (16 MiB read 16 times a call; "
+        f"L1 hits not told apart)")
     k3_wide = {}
     for gw in WIDE_STEPS:
         kw_params = prepare_k3(pack_params(params, gw), model, gw, inc_splits=(2, 2, 2))
@@ -3809,6 +3849,7 @@ def main() -> int:
                        "first_rollout_s": first_s, "build_s": built.seconds,
                        "profile": profiles, "k3_calls": k3_rows,
                        "k3_wide_calls": {str(gw): r for gw, r in k3_wide.items()},
+                       "l2_read_tb_s": l2_rate,
                        "wide_packed": wide_packed, "distribution": distribution,
                        "packed": {
                            "first_rollout_s": pack_first_s,

@@ -46,20 +46,30 @@
 // rounded to bf16 where they enter a product, weights are bf16, and sums,
 // biases and PReLU are f32.
 //
-// What bounds it on this card: one packed step at 256^2, g = 16, does
-// 178.9 GFLOP in its 14 calls and moves about 350 MB, so the function is
-// bound by operations at the bf16 tensor-core rate (0.181 ms a step at
-// 989 TFLOP/s, against 0.105 ms for the bytes at 3.35 TB/s). The output
-// tile is chosen by the level's size (ops/packed_double_conv.tile_for):
-// 8 x 16 at 256^2 and 128^2 (3 m64 tiles in conv1, 2 in conv2), 4 x 8 at
-// 64^2 and below (1 and 1, half of conv2's rows padding), where 8 x 16
-// would give 2 to 32 blocks for 132 SMs. Both keep one block on each SM
-// (169 and 214 KiB of shared memory).
+// What bounds it on this card. The 128-wide instance: one packed step at
+// 256^2, g = 16, does 178.9 GFLOP in its 14 calls and moves about 350 MB,
+// so the function is bound by operations at the bf16 tensor-core rate
+// (0.181 ms a step at 989 TFLOP/s, against 0.105 ms for the bytes at
+// 3.35 TB/s). The output tile is chosen by the level's size
+// (ops/packed_double_conv.tile_for): 8 x 16 at 256^2 and 128^2 (3 m64
+// tiles in conv1, 2 in conv2), 4 x 8 at 64^2 and below (1 and 1, half of
+// conv2's rows padding), where 8 x 16 would give 2 to 32 blocks for 132
+// SMs. Both keep one block on each SM (169 and 214 KiB of shared memory).
 //
-// Mid, out and head widths above 128 go to the wide instances below, which
-// cut N into slices of 128 and so keep this design's accumulators, chunks
-// and ring; at 256^2 a g = 32 step does 4 x 178.9 GFLOP (0.72 ms at the bf16
-// rate), a g = 64 step 16 x.
+// Mid, out and head widths above 128 take the cluster instance below. Its
+// function is bound by operations too (a 256^2 step: 0.725 ms at g = 32,
+// 2.90 ms at g = 64), but what limits a kernel there is the weight bytes
+// it reads from L2: every tile reads all of w1 and w2 once. A block that
+// computed all of N for its tile would have to hold the mid tile of every
+// mid channel (62 KB at 512 channels and 4 x 8), so only small tiles fit,
+// and small tiles mean many reads of the weights (21.7 GB from L2 for one
+// g = 64 call at 256^2 on 4 x 8 tiles, at about 4.4 TB/s). The cluster
+// splits N over its CTAs instead, each holding one 128-channel slice of the
+// mid tile, so every width takes the 8 x 16 tile: a tile's weights are
+// read once across its cluster, for 4x (g = 64) or 2x (g = 32) the pixels
+// of a 4 x 8 or 8 x 8 tile, and conv1's ring of padding rows falls to 1.5x
+// its output rows. The peers' mid chunks cross the cluster's distributed
+// shared memory (5.6 KB a chunk at 8 x 16), not L2.
 //
 // Plain C entry point, bound from Python with ctypes
 // (ops/packed_double_conv.py). It launches on the caller's stream, does not
@@ -641,8 +651,8 @@ cudaError_t launch(const Args& a, int B, cudaStream_t stream) {
 }
 
 // The output tiles (ops/packed_double_conv.TILES), largest first: 0 is
-// 8 x 16 (the 128-wide instances only), 1 is 8 x 8 (the wide ones only), 2
-// is 4 x 8; RING weight stages each. TILE_H: their heights.
+// 8 x 16, 1 is 8 x 8 (the cluster instance only), 2 is 4 x 8; RING weight
+// stages each. TILE_H: their heights.
 constexpr int RING = 4;
 constexpr int TILE_H[3] = {8, 8, 4};
 
@@ -656,63 +666,87 @@ bool valid_pad(int padded, int c) {
   return (padded == 32 || padded == 128) && c > 0 && c <= padded;
 }
 
-// ---- the wide instances: mid, out or head widths above 128 ------------------
-// The same pipeline as above, with N cut into slices of SW = 128 columns, so
-// the accumulators, the weight chunks and the ring stay those of the 128-wide
-// instance:
-//   conv1 runs once per slice of SW mid channels, re-streaming the input
-//     chunks each time (they come from L2), and writes its slice of the
-//     intermediate into the shared mid tile, which holds all CMP channels;
-//   conv2 runs once per slice of SW out channels over that whole tile;
-//   the head, where there is one, adds each conv2 slice's bf16(h2 + b2)
-//     [M2 x SW] times the matching SW columns of w3 to accumulators that
-//     stay in registers across the slices; its B fragments come from
-//     global memory (read once per block, from L2).
-// The weights come slice-major: w1 as [CMP / SW][nck1][9][SW / 8][2][8][8],
-// w2 as [COP / SW][CMP / CK][9][SW / 8][2][8][8], so chunk q of the stream is
-// again one contiguous run of SW x 9 x 16 bf16. CMP and COP are runtime
-// multiples of SW up to MAX_WIDE; the mid tile's size follows CMP, so the
-// dynamic shared memory does too. Tiles: 4 x 8 for every width (62 KB of mid
-// tile at 512 channels) and 8 x 8 up to 256 mid channels and 128 head
-// channels (the head's accumulators must fit the registers).
-constexpr int SW = 128;
+// ---- the cluster instance: mid, out or head widths above 128 ---------------
+// One thread-block cluster of NS = max(cmp, cop) / SW CTAs computes one
+// output tile. CTA r is the 128-wide instance above at CMP = COP = SW for
+// slice r of N (same chunks, ring, wgmma shapes and epilogues):
+//   conv1: mid channels [r SW, r SW + SW) from w1's slice r, over input
+//     chunks it streams once, into its own mid slice in shared memory;
+//   barrier.cluster: every mid slice is written;
+//   conv2: out channels [r SW, r SW + SW) from w2's slice r, over every
+//     mid chunk: its own slice's first, from local shared memory, then the
+//     peers' slices in turn, each 16-channel chunk copied from the peer's
+//     shared memory (mapa + ld.shared::cluster) into one of two local
+//     buffers (the input buffers, free after conv1) one chunk ahead of the
+//     wgmma; the cluster barrier is waited for only before the first
+//     peer's chunk, so the own chunks cover the CTAs' skew;
+//   the head, where there is one: bf16(h2 + b2) of each out slice into its
+//     CTA's ring (free after conv2), barrier.cluster, every peer's slice
+//     copied into the same place of the local ring, and CTA r takes head
+//     columns n8 tile rank * WN2 + hn, + NS * WN2, ... over all slices
+//     (mma.sync, w3 from L2), one n8 tile at a time at any head width;
+//   a last barrier.cluster before any CTA exits, as peers read its shared
+//     memory until then.
+// A CTA past the mid slices (cmp < cop) skips conv1, one past the out
+// slices (cop < cmp) conv2; both take part in every barrier.
+// The weights come slice-major: w1 as [cmp / SW][nck1][9][SW / 8][2][8][8],
+// w2 as [cop / SW][cmp / CK][9][SW / 8][2][8][8], so CTA r's chunks are one
+// contiguous run of each. Shared memory is the 128-wide instance's at any
+// width (the mid tile holds one slice), 219,456 B at 8 x 16.
+constexpr int SW = 128;           // N columns of one CTA: one slice
+constexpr int CPS = SW / CK;      // mid chunks a slice
 constexpr int MAX_WIDE = 512;
+constexpr int MAX_CLUSTER = MAX_WIDE / SW;
 
-template <int TH, int TW, int STAGES, int CEMAX>
-struct WideCfg {
-  static constexpr int MH = TH + 2, MW = TW + 2, IH = TH + 4, IW = TW + 4;
-  static constexpr int M1 = MH * MW, M2 = TH * TW;
-  static constexpr int G1 = (M1 + 63) / 64, G2 = (M2 + 63) / 64;
-  static constexpr int N1 = SW / 2;  // each warpgroup: half of a slice
-  static constexpr bool SPLIT2 = G2 % 2 == 0;
-  static constexpr int T2 = SPLIT2 ? G2 / 2 : G2, N2 = SPLIT2 ? SW : SW / 2;
-  static constexpr int MT2 = M2 / 16;
-  static constexpr int WM2 = MT2 >= 4 ? 4 : MT2, WN2 = 8 / WM2;
-  static constexpr int MPW2 = MT2 / WM2;
-  static constexpr int NT3 = CEMAX / 8 / WN2;  // head n8 tiles a warp, at most
-  static constexpr int XT = IH * IW * XS;
-  static constexpr int SB = SW * WROW;          // one ring stage: one chunk
-  static constexpr int H2STR = SW + 8;          // a conv2 slice's h2 rows
-  // h2 of one slice goes into the input buffers (free after conv1) where
-  // it fits, else after the mid tile
-  static constexpr bool H2_IN_XS = M2 * H2STR <= 2 * XT;
-  static constexpr int NG = IH * IW * (CK / 4);
-  static constexpr int LV = (NG + THREADS - 1) / THREADS;
-  static constexpr size_t bytes(int cmp) {
-    return (size_t)(2 * XT + STAGES * SB + M1 * (cmp + 8) +
-                    (H2_IN_XS ? 0 : M2 * H2STR)) * sizeof(bf16);
-  }
-  static_assert(M2 % 16 == 0 && MT2 % WM2 == 0, "whole m16 tiles");
-  static_assert(STAGES >= 3, "two chunks in flight");
-};
+__device__ __forceinline__ int cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return (int)r;
+}
 
-// Weight chunk q of the wide stream (nq1 conv1 chunks, then conv2's), each
-// SW rows, into ring stage `dst`; then commit a group.
-__device__ __forceinline__ void issue_weights_wide(bf16* dst, const Args& a,
-                                                   int q, int nq1, int total) {
+// barrier.cluster: arrive releases this thread's writes to the cluster,
+// wait acquires those of every thread that arrived; every thread of every
+// CTA of the cluster takes part, in the same order.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The address of the same shared-memory byte in CTA `rank` of the cluster.
+__device__ __forceinline__ uint32_t peer_addr(uint32_t saddr, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(saddr), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ uint4 ld_peer(uint32_t addr) {
+  uint4 v;
+  asm volatile("ld.shared::cluster.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// Conv2's mid slice at step j of a CTA whose first is `first`: the slices
+// in turn, CPS chunks each.
+__device__ __forceinline__ int mid_slice(int j, int first, int ns1) {
+  return (first + j / CPS) % ns1;
+}
+
+// Chunk q of a CTA's weight stream (its nq1 conv1 chunks from w1s, then
+// conv2's from w2s in mid_slice order), SW rows each, into ring stage `dst`;
+// then commit a group (empty past the last chunk).
+__device__ __forceinline__ void issue_slice_weights(bf16* dst, const bf16* w1s,
+                                                    const bf16* w2s, int q, int nq1,
+                                                    int total, int first, int ns1) {
   if (q < total) {
-    const bf16* src = q < nq1 ? a.w1 + (size_t)q * SW * WROW
-                              : a.w2 + (size_t)(q - nq1) * SW * WROW;
+    const int j = q - nq1;
+    const bf16* src = q < nq1 ? w1s + (size_t)q * SW * WROW
+                              : w2s + (size_t)(mid_slice(j, first, ns1) * CPS + j % CPS) *
+                                          SW * WROW;
     const uint32_t base = smem_addr(dst);
 #pragma unroll 1
     for (int i = threadIdx.x; i < SW * WROW / 8; i += THREADS)
@@ -721,76 +755,107 @@ __device__ __forceinline__ void issue_weights_wide(bf16* dst, const Args& a,
   cp_async_commit();
 }
 
-template <int TH, int TW, int STAGES, int CEMAX>
+// Mid chunk c (16 channels) of the M1 pixels of CTA `rank`'s mid slice
+// (local address `hs` mapped to that CTA), two 16-byte halves a pixel, into
+// registers; store_peer_chunk puts them into a local buffer of stride XS.
+template <int LP, int M1, int HSTR>
+__device__ __forceinline__ void load_peer_chunk(uint4 (&v)[LP], uint32_t hs, int rank,
+                                                int c) {
+#pragma unroll
+  for (int i = 0; i < LP; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    if (idx < M1 * 2)
+      v[i] = ld_peer(peer_addr(hs + ((idx >> 1) * HSTR + c * CK + (idx & 1) * 8) * 2, rank));
+  }
+}
+
+template <int LP, int M1>
+__device__ __forceinline__ void store_peer_chunk(bf16* buf, const uint4 (&v)[LP]) {
+#pragma unroll
+  for (int i = 0; i < LP; ++i) {
+    const int idx = threadIdx.x + i * THREADS;
+    if (idx < M1 * 2) *reinterpret_cast<uint4*>(buf + (idx >> 1) * XS + (idx & 1) * 8) = v[i];
+  }
+}
+
+template <int TH, int TW, int STAGES>
 __global__ void __launch_bounds__(THREADS, 1)
-wide_double_conv_kernel(const __grid_constant__ Args a, int cmp, int cop) {
-  using C = WideCfg<TH, TW, STAGES, CEMAX>;
+cluster_double_conv_kernel(const __grid_constant__ Args a, int cmp, int cop) {
+  using C = Cfg<TH, TW, SW, SW, STAGES>;
+  constexpr int PB = C::M1 * XS;                         // one peer chunk buffer
+  constexpr int LP = (C::M1 * 2 + THREADS - 1) / THREADS;  // its 16-byte loads a thread
+  constexpr int H2STR = SW + 8, H2S = C::M2 * H2STR;     // one h2 slice
+  static_assert(PB <= C::XT, "two peer chunks fit the input buffers");
+  static_assert(MAX_CLUSTER * H2S <= STAGES * C::SB, "every h2 slice fits the ring");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // 2 x [IH*IW][XS]
-  bf16* ring = xs + 2 * C::XT;                   // STAGES x SB
-  bf16* hs = ring + STAGES * C::SB;              // [M1][cmp + 8]
-  bf16* h2s = C::H2_IN_XS ? xs : hs + C::M1 * (cmp + 8);  // [M2][H2STR]
-  const int hstr = cmp + 8;
+  bf16* xs = reinterpret_cast<bf16*>(smem_raw);  // 2 x [IH*IW][XS]; conv2: 2 x [M1][XS]
+  bf16* ring = xs + 2 * C::XT;                   // STAGES x SB; the head: [ns2][M2][H2STR]
+  bf16* hs = ring + STAGES * C::SB;              // [M1][HSTR]: this CTA's mid slice
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = blockIdx.x * TW;
+  const int ns1 = cmp / SW, ns2 = cop / SW, ns = ns1 > ns2 ? ns1 : ns2;
+  const int rank = cluster_rank();
+  const int n = blockIdx.z, y0 = blockIdx.y * TH, x0 = (blockIdx.x / ns) * TW;
   const int cin = a.c[0] + a.c[1] + a.c[2];
-  const int ns1 = cmp / SW, ns2 = cop / SW, nck2 = cmp / CK;
-  const int nq1 = ns1 * a.nck1, total = nq1 + ns2 * nck2;
+  const int nck2 = cmp / CK;
+  const bool has1 = rank < ns1, has2 = rank < ns2;  // a mid slice, an out slice
+  const int nq1 = has1 ? a.nck1 : 0, total = nq1 + (has2 ? nck2 : 0);
+  const int first = has1 ? rank : rank % ns1;  // conv2's first mid slice
+  const bf16* w1s = a.w1 + (size_t)rank * a.nck1 * SW * WROW;
+  const bf16* w2s = a.w2 + (size_t)rank * nck2 * SW * WROW;
   const int arow = (lane & 7) + ((lane >> 3) & 1) * 8, ahalf = lane >> 4;
   const int wg = warp >> 2, wl = warp & 3;
 
   constexpr int D = STAGES - 2;
 #pragma unroll
-  for (int s = 0; s < D; ++s) issue_weights_wide(ring + s * C::SB, a, s, nq1, total);
-  float4 buf[C::LV];
-  if (a.vec) {
-    load_input<C>(buf, a, n, y0, x0, 0, cin);
-    store_input<C>(xs, buf);
-  } else {
-    stage_input_scalar<C>(xs, a, n, y0, x0, 0, cin);
-  }
+  for (int s = 0; s < D; ++s)
+    issue_slice_weights(ring + s * C::SB, w1s, w2s, s, nq1, total, first, ns1);
 
-  // ---- conv1, one slice of SW mid channels at a time ----------------------
-  int pa[C::G1];
+  // ---- conv1: this CTA's SW mid channels, as the 128-wide instance --------
+  if (has1) {
+    float4 buf[C::LV];
+    if (a.vec) {
+      load_input<C>(buf, a, n, y0, x0, 0, cin);
+      store_input<C>(xs, buf);
+    } else {
+      stage_input_scalar<C>(xs, a, n, y0, x0, 0, cin);
+    }
+    int pa[C::G1];
 #pragma unroll
-  for (int i = 0; i < C::G1; ++i) {
-    const int r = i * 64 + wl * 16 + arow;
-    pa[i] = r < C::M1 ? (r / C::MW) * C::IW + r % C::MW : 0;
-  }
-  const float slope = a.slope != nullptr ? __ldg(a.slope) : 0.f;
-  float acc1[C::G1][C::N1 / 2];
-  uint32_t af1[3][C::G1][4];
-  int q = 0;  // chunk of the weight stream; also picks the input buffer
-#pragma unroll 1
-  for (int s1 = 0; s1 < ns1; ++s1) {
+    for (int i = 0; i < C::G1; ++i) {
+      const int r = i * 64 + wl * 16 + arow;
+      pa[i] = r < C::M1 ? (r / C::MW) * C::IW + r % C::MW : 0;
+    }
+    float acc1[C::G1][C::N1 / 2];
 #pragma unroll
     for (int i = 0; i < C::G1; ++i)
 #pragma unroll
       for (int e = 0; e < C::N1 / 2; ++e) acc1[i][e] = 0.f;
+    uint32_t af1[3][C::G1][4];
 #pragma unroll 1
-    for (int k = 0; k < a.nck1; ++k, ++q) {
+    for (int k = 0; k < a.nck1; ++k) {
       cp_async_wait<D - 1>();
       fence_proxy_async();
       __syncthreads();
-      issue_weights_wide(ring + ((q + D) % STAGES) * C::SB, a, q + D, nq1, total);
-      // the next input chunk: k + 1, or chunk 0 again for the next slice
-      const bool more = k + 1 < a.nck1 || s1 + 1 < ns1;
-      const int kn = k + 1 < a.nck1 ? k + 1 : 0;
-      if (more && a.vec) load_input<C>(buf, a, n, y0, x0, kn, cin);
-      const bf16* xk = xs + (q & 1) * C::XT;
+      issue_slice_weights(ring + ((k + D) % STAGES) * C::SB, w1s, w2s, k + D, nq1, total,
+                          first, ns1);
+      const bool more = k + 1 < a.nck1;
+      if (more && a.vec) load_input<C>(buf, a, n, y0, x0, k + 1, cin);
+      const bf16* xk = xs + (k & 1) * C::XT;
       uint32_t a_base[C::G1];
 #pragma unroll
       for (int i = 0; i < C::G1; ++i) a_base[i] = smem_addr(xk + pa[i] * XS + ahalf * 8);
-      const uint32_t wk = smem_addr(ring + (q % STAGES) * C::SB) + wg * (C::N1 / 8) * 256;
+      const uint32_t wk = smem_addr(ring + (k % STAGES) * C::SB) + wg * (C::N1 / 8) * 256;
       chunk_wgmma<C::G1, C::N1, C::IW, XS, SW * 32>(acc1, af1, a_base, wk);
-      bf16* xnext = xs + ((q + 1) & 1) * C::XT;
+      bf16* xnext = xs + ((k + 1) & 1) * C::XT;
       if (more && a.vec) store_input<C>(xnext, buf);
-      if (more && !a.vec) stage_input_scalar<C>(xnext, a, n, y0, x0, kn, cin);
+      if (more && !a.vec) stage_input_scalar<C>(xnext, a, n, y0, x0, k + 1, cin);
     }
     wgmma_drain<C::G1, C::N1>(acc1);
-    // bias + PReLU of this slice, rounded to bf16; zero outside the image
+
+    // bias + PReLU, rounded to bf16; zero outside the image (conv2's padding)
+    const float slope = a.slope != nullptr ? __ldg(a.slope) : 0.f;
 #pragma unroll
     for (int i = 0; i < C::G1; ++i)
 #pragma unroll
@@ -801,61 +866,86 @@ wide_double_conv_kernel(const __grid_constant__ Args a, int cmp, int cop) {
         const bool inside = gy >= 0 && gy < a.H && gx >= 0 && gx < a.W;
 #pragma unroll
         for (int j = 0; j < C::N1 / 8; ++j) {
-          const int c = s1 * SW + wg * C::N1 + j * 8 + 2 * t;
+          const int c = wg * C::N1 + j * 8 + 2 * t, cmid = rank * SW + c;
           float v0 = 0.f, v1 = 0.f;
           if (inside) {
-            v0 = acc1[i][4 * j + 2 * h] + (c < a.cm ? __ldg(a.b1 + c) : 0.f);
-            v1 = acc1[i][4 * j + 2 * h + 1] + (c + 1 < a.cm ? __ldg(a.b1 + c + 1) : 0.f);
+            v0 = acc1[i][4 * j + 2 * h] + (cmid < a.cm ? __ldg(a.b1 + cmid) : 0.f);
+            v1 = acc1[i][4 * j + 2 * h + 1] + (cmid + 1 < a.cm ? __ldg(a.b1 + cmid + 1) : 0.f);
             v0 = prelu(v0, slope);
             v1 = prelu(v1, slope);
           }
-          *reinterpret_cast<uint32_t*>(hs + r * hstr + c) = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(hs + r * C::HSTR + c) = pack_bf16(v0, v1);
         }
       }
   }
+  cluster_arrive();  // this CTA's mid slice is written
 
-  // ---- conv2, one slice of SW out channels at a time ----------------------
-  const int t2 = C::SPLIT2 ? wg * C::T2 : 0;
-  const int ncol2 = C::SPLIT2 ? 0 : wg;
-  int ph[C::T2];
-#pragma unroll
-  for (int i = 0; i < C::T2; ++i) {
-    const int r = (t2 + i) * 64 + wl * 16 + arow;
-    ph[i] = r < C::M2 ? (r / TW) * C::MW + r % TW : 0;
-  }
-  const bool head = a.w3 != nullptr;
-  const int hm = warp % C::WM2, hn = warp / C::WM2;
-  float acc3[C::NT3][C::MPW2][4];
-#pragma unroll
-  for (int u = 0; u < C::NT3; ++u)
-#pragma unroll
-    for (int i = 0; i < C::MPW2; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc3[u][i][e] = 0.f;
+  // ---- conv2: this CTA's SW out channels over every mid slice -------------
+  const int t2 = C::SPLIT2 ? wg * C::T2 : 0;  // this warpgroup's first m64
+  const int ncol2 = C::SPLIT2 ? 0 : wg;        // and block of N2 columns
   float acc2[C::T2][C::N2 / 2];
-  uint32_t af2[3][C::T2][4];
-#pragma unroll 1
-  for (int s2 = 0; s2 < ns2; ++s2) {
+  bool waited = false;  // for the mid slices to be written
+  if (has2) {
+    int ph[C::T2];
+#pragma unroll
+    for (int i = 0; i < C::T2; ++i) {
+      const int r = (t2 + i) * 64 + wl * 16 + arow;
+      ph[i] = r < C::M2 ? (r / TW) * C::MW + r % TW : 0;
+    }
 #pragma unroll
     for (int i = 0; i < C::T2; ++i)
 #pragma unroll
       for (int e = 0; e < C::N2 / 2; ++e) acc2[i][e] = 0.f;
+    uint32_t af2[3][C::T2][4];
+    uint4 pv[LP];
+    const uint32_t hs_addr = smem_addr(hs);
+    if (first != rank) {  // no mid slice of its own: a peer's chunk first
+      cluster_wait();
+      waited = true;
+      load_peer_chunk<LP, C::M1, C::HSTR>(pv, hs_addr, first, 0);
+      store_peer_chunk<LP, C::M1>(xs, pv);
+    }
 #pragma unroll 1
-    for (int k2 = 0; k2 < nck2; ++k2, ++q) {
+    for (int j = 0; j < nck2; ++j) {
+      const int q = nq1 + j;
       cp_async_wait<D - 1>();
       fence_proxy_async();
-      __syncthreads();  // also: the intermediate is written, h2s is read
-      issue_weights_wide(ring + ((q + D) % STAGES) * C::SB, a, q + D, nq1, total);
+      __syncthreads();  // also: the mid slice and chunk j's peer buffer are written
+      issue_slice_weights(ring + ((q + D) % STAGES) * C::SB, w1s, w2s, q + D, nq1, total,
+                          first, ns1);
+      const int s = mid_slice(j, first, ns1), c = j % CPS;
+      const int sn = mid_slice(j + 1, first, ns1);
+      const bool fetch = j + 1 < nck2 && sn != rank;
+      if (fetch) {
+        if (!waited) {
+          cluster_wait();
+          waited = true;
+        }
+        load_peer_chunk<LP, C::M1, C::HSTR>(pv, hs_addr, sn, (j + 1) % CPS);
+      }
       uint32_t a_base[C::T2];
+      int astr = XS;
+      if (s == rank) {
+        astr = C::HSTR;
 #pragma unroll
-      for (int i = 0; i < C::T2; ++i)
-        a_base[i] = smem_addr(hs + ph[i] * hstr + k2 * CK + ahalf * 8);
+        for (int i = 0; i < C::T2; ++i)
+          a_base[i] = smem_addr(hs + ph[i] * C::HSTR + c * CK + ahalf * 8);
+      } else {
+        const bf16* pb = xs + (j & 1) * PB;
+#pragma unroll
+        for (int i = 0; i < C::T2; ++i) a_base[i] = smem_addr(pb + ph[i] * XS + ahalf * 8);
+      }
       const uint32_t wk = smem_addr(ring + (q % STAGES) * C::SB) + ncol2 * (C::N2 / 8) * 256;
-      chunk_wgmma<C::T2, C::N2, C::MW, 1, SW * 32>(acc2, af2, a_base, wk, hstr);
+      chunk_wgmma<C::T2, C::N2, C::MW, 1, SW * 32>(acc2, af2, a_base, wk, astr);
+      if (fetch) store_peer_chunk<LP, C::M1>(xs + ((j + 1) & 1) * PB, pv);
     }
     wgmma_drain<C::T2, C::N2>(acc2);
+  }
+  if (!waited) cluster_wait();
 
-    if (!head) {  // conv2 + bias is the output
+  if (a.w3 == nullptr) {  // conv2 + bias is the output
+    cluster_arrive();  // done reading the peers' mid slices
+    if (has2) {
 #pragma unroll
       for (int i = 0; i < C::T2; ++i)
 #pragma unroll
@@ -866,15 +956,21 @@ wide_double_conv_kernel(const __grid_constant__ Args a, int cmp, int cop) {
           float* op = a.out + (((size_t)n * a.H + gy) * a.W + gx) * a.co;
 #pragma unroll
           for (int j = 0; j < C::N2 / 8; ++j) {
-            const int c = s2 * SW + ncol2 * C::N2 + j * 8 + 2 * t;
+            const int c = rank * SW + ncol2 * C::N2 + j * 8 + 2 * t;
             if (c < a.co) op[c] = acc2[i][4 * j + 2 * h] + __ldg(a.b2 + c);
             if (c + 1 < a.co) op[c + 1] = acc2[i][4 * j + 2 * h + 1] + __ldg(a.b2 + c + 1);
           }
         }
-      continue;
     }
+    cluster_wait();  // ... and so are the peers, before this CTA's shared memory goes
+    return;
+  }
 
-    // the head's share of this slice: bf16(h2 + b2) [M2 x SW] x w3[:, slice]
+  // ---- the 1x1 head: bf16(h2 + b2) [M2] x [cop] x [cep] ------------------
+  cp_async_wait<0>();
+  __syncthreads();   // every warp's reads of the ring are done
+  bf16* h2s = ring;  // out slice s at h2s + s * H2S, in every CTA
+  if (has2) {
 #pragma unroll
     for (int i = 0; i < C::T2; ++i)
 #pragma unroll
@@ -883,38 +979,47 @@ wide_double_conv_kernel(const __grid_constant__ Args a, int cmp, int cop) {
         if (r >= C::M2) continue;
 #pragma unroll
         for (int j = 0; j < C::N2 / 8; ++j) {
-          const int cl = ncol2 * C::N2 + j * 8 + 2 * t, c = s2 * SW + cl;
+          const int cl = ncol2 * C::N2 + j * 8 + 2 * t, c = rank * SW + cl;
           const float v0 = c < a.co ? acc2[i][4 * j + 2 * h] + __ldg(a.b2 + c) : 0.f;
           const float v1 = c + 1 < a.co ? acc2[i][4 * j + 2 * h + 1] + __ldg(a.b2 + c + 1) : 0.f;
-          *reinterpret_cast<uint32_t*>(h2s + r * C::H2STR + cl) = pack_bf16(v0, v1);
+          *reinterpret_cast<uint32_t*>(h2s + rank * H2S + r * H2STR + cl) = pack_bf16(v0, v1);
         }
       }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < C::NT3; ++u) {
-      const int nt = hn + u * C::WN2;
-      if (nt >= a.cep / 8) break;
-      const uint32_t* wp = reinterpret_cast<const uint32_t*>(
-          a.w3 + (size_t)(nt * 8 + g) * cop + s2 * SW + 2 * t);
-#pragma unroll
-      for (int ks = 0; ks < SW / 16; ++ks) {
-        const uint32_t b0 = __ldg(wp + ks * 8), b1 = __ldg(wp + ks * 8 + 4);
-#pragma unroll
-        for (int i = 0; i < C::MPW2; ++i) {
-          uint32_t af[4];
-          ldmatrix_x4(af, smem_addr(h2s + ((hm * C::MPW2 + i) * 16 + arow) * C::H2STR +
-                                    ks * 16 + ahalf * 8));
-          mma16816(acc3[u][i], af, b0, b1);
-        }
-      }
+  }
+  cluster_arrive();
+  cluster_wait();  // every out slice's h2 is written; every mid slice read
+  for (int s = 0; s < ns2; ++s) {
+    if (s == rank) continue;
+#pragma unroll 4
+    for (int i = threadIdx.x; i < C::M2 * (SW / 8); i += THREADS) {
+      bf16* dst = h2s + s * H2S + (i / (SW / 8)) * H2STR + (i % (SW / 8)) * 8;
+      *reinterpret_cast<uint4*>(dst) = ld_peer(peer_addr(smem_addr(dst), s));
     }
   }
-  if (!head) return;
-
+  cluster_arrive();  // done reading the peers' h2
+  __syncthreads();   // the copies are visible to every warp
+  // the head's products on mma.sync: M2 rows as WM2 x MPW2 m16 tiles; this
+  // CTA's n8 tiles of the head, one at a time, over all cop channels
+  const int hm = warp % C::WM2, hn = warp / C::WM2;
+#pragma unroll 1
+  for (int nt = rank * C::WN2 + hn; nt < a.cep / 8; nt += ns * C::WN2) {
+    float acc3[C::MPW2][4];
 #pragma unroll
-  for (int u = 0; u < C::NT3; ++u) {
-    const int nt = hn + u * C::WN2;
-    if (nt >= a.cep / 8) break;
+    for (int i = 0; i < C::MPW2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc3[i][e] = 0.f;
+    const uint32_t* wp = reinterpret_cast<const uint32_t*>(a.w3 + (size_t)(nt * 8 + g) * cop + 2 * t);
+#pragma unroll 4
+    for (int ks = 0; ks < cop / 16; ++ks) {
+      const uint32_t b0 = __ldg(wp + ks * 8), b1 = __ldg(wp + ks * 8 + 4);
+      const bf16* h2k = h2s + (ks / CPS) * H2S + (ks % CPS) * 16 + ahalf * 8;
+#pragma unroll
+      for (int i = 0; i < C::MPW2; ++i) {
+        uint32_t af[4];
+        ldmatrix_x4(af, smem_addr(h2k + ((hm * C::MPW2 + i) * 16 + arow) * H2STR));
+        mma16816(acc3[i], af, b0, b1);
+      }
+    }
     const int e = nt * 8 + 2 * t;
 #pragma unroll
     for (int i = 0; i < C::MPW2; ++i)
@@ -924,39 +1029,55 @@ wide_double_conv_kernel(const __grid_constant__ Args a, int cmp, int cop) {
         const int gy = y0 + r / TW, gx = x0 + r % TW;
         if (gy >= a.H || gx >= a.W) continue;
         float* op = a.out + (((size_t)n * a.H + gy) * a.W + gx) * a.ce;
-        if (e < a.ce) op[e] = acc3[u][i][2 * h] + __ldg(a.b3 + e);
-        if (e + 1 < a.ce) op[e + 1] = acc3[u][i][2 * h + 1] + __ldg(a.b3 + e + 1);
+        if (e < a.ce) op[e] = acc3[i][2 * h] + __ldg(a.b3 + e);
+        if (e + 1 < a.ce) op[e + 1] = acc3[i][2 * h + 1] + __ldg(a.b3 + e + 1);
       }
   }
+  cluster_wait();  // the peers are done reading this CTA's h2
 }
 
-// Wide tiles (ops/packed_double_conv.TILES): 2 is 4 x 8 (any width), 1 is
-// 8 x 8 (cmp <= 256, ce <= 128).
-using Wide48 = WideCfg<4, 8, RING, MAX_WIDE>;
-using Wide88 = WideCfg<8, 8, RING, 128>;
-
-bool wide_fits(int tile, int cmp, int ce) {
-  if (tile == 2) return true;
-  return tile == 1 && cmp <= 256 && ce <= 128;
-}
-
-template <int TH, int TW, int CEMAX>
-cudaError_t launch_wide(const Args& a, int B, int cmp, int cop, cudaStream_t stream) {
-  using C = WideCfg<TH, TW, RING, CEMAX>;
-  auto kernel = wide_double_conv_kernel<TH, TW, RING, CEMAX>;
-  static unsigned long long devices_done = 0;
+// The launch of one cluster instance: ns CTAs a cluster along x, on a grid
+// of ns x (tiles along x) by tiles along y by B. Once for each cluster size
+// on each device, before its first launch (so no such call falls inside a
+// CUDA-graph capture after it): raises the instance's shared-memory limit
+// and checks that the card holds at least one of its clusters
+// (cudaOccupancyMaxActiveClusters), or fails, and the wrapper raises;
+// nothing falls back to another instance.
+template <int TH, int TW>
+cudaError_t launch_cluster(const Args& a, int B, int cmp, int cop, cudaStream_t stream) {
+  using C = Cfg<TH, TW, SW, SW, RING>;
+  const int ns = (cmp > cop ? cmp : cop) / SW;
+  static unsigned long long ready[MAX_CLUSTER + 1] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
   if (device >= 64) return cudaErrorInvalidDevice;
-  if (!((devices_done >> device) & 1ull)) {  // the most any width needs
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)C::bytes(TH == 4 ? MAX_WIDE : 256));
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ns;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ns);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = C::BYTES;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (!((ready[ns] >> device) & 1ull)) {
+    err = cudaFuncSetAttribute(cluster_double_conv_kernel<TH, TW, RING>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::BYTES);
     if (err != cudaSuccess) return err;
-    devices_done |= 1ull << device;
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, cluster_double_conv_kernel<TH, TW, RING>,
+                                         &cfg);
+    if (err != cudaSuccess) return err;
+    if (clusters < 1) return cudaErrorLaunchOutOfResources;
+    ready[ns] |= 1ull << device;
   }
-  const dim3 grid((a.W + TW - 1) / TW, (a.H + TH - 1) / TH, B);
-  kernel<<<grid, THREADS, C::bytes(cmp), stream>>>(a, cmp, cop);
+  cfg.gridDim = dim3((a.W + TW - 1) / TW * ns, (a.H + TH - 1) / TH, B);
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, cluster_double_conv_kernel<TH, TW, RING>, a, cmp, cop);
+  if (err != cudaSuccess) return err;
   return cudaGetLastError();
 }
 
@@ -967,7 +1088,7 @@ bool valid_wide(int padded, int c) {
 }  // namespace
 
 // The dynamic shared memory of one instance, in bytes (tile as below), or
-// -1 for widths it does not take.
+// -1 for widths or a tile it does not take.
 extern "C" int hn_packed_double_conv_smem(int tile, int cmp, int cop) {
 #define HN_SMEM(M, O)                                                    \
   if (cmp == M && cop == O && tile != 1)                                 \
@@ -976,8 +1097,9 @@ extern "C" int hn_packed_double_conv_smem(int tile, int cmp, int cop) {
   HN_SMEM(32, 32) HN_SMEM(32, 128) HN_SMEM(128, 32) HN_SMEM(128, 128)
 #undef HN_SMEM
   if (!valid_wide(cmp, cmp) || !valid_wide(cop, cop)) return -1;
-  if (tile == 2) return (int)Wide48::bytes(cmp);
-  if (tile == 1 && cmp <= 256) return (int)Wide88::bytes(cmp);
+  if (tile == 0) return (int)Cfg<8, 16, SW, SW, RING>::BYTES;
+  if (tile == 1) return (int)Cfg<8, 8, SW, SW, RING>::BYTES;
+  if (tile == 2) return (int)Cfg<4, 8, SW, SW, RING>::BYTES;
   return -1;
 }
 
@@ -989,23 +1111,23 @@ extern "C" int hn_packed_double_conv_smem(int tile, int cmp, int cop) {
 // w3: bf16 [cep][cop] and b3: [ce] (the 1x1 head), or null with ce = 0;
 // out: [B, H, W, ce] with the head, else [B, H, W, co]. f32 contiguous.
 // cmp, cop: cm and co padded to 32 or 128, or, where cm, co or ce is above
-// 128, each to a multiple of 128 up to 512 (the wide instances; w1 and w2
+// 128, each to a multiple of 128 up to 512 (the cluster instance; w1 and w2
 // then slice-major, see above); cep: ce padded to 8.
 // vec: every part's channel count is a multiple of 4 and its pointer 16-byte
-// aligned (vector loads of the input). tile: 0 for 8 x 16 output tiles
-// (128-wide only), 1 for 8 x 8 (wide only, cmp <= 256 and ce <= 128), 2 for
-// 4 x 8 (ops/packed_double_conv.tile_for).
+// aligned (vector loads of the input). tile: 0 for 8 x 16 output tiles, 1
+// for 8 x 8 (the cluster instance only), 2 for 4 x 8
+// (ops/packed_double_conv.tile_for).
 extern "C" int hn_packed_double_conv(
     const float* x0, int c0, const float* x1, int c1, const float* x2, int c2,
     const void* w1, const float* b1, const float* slope, const void* w2,
     const float* b2, const void* w3, const float* b3, float* out, int B,
     int H, int W, int cm, int co, int ce, int cmp, int cop, int cep, int vec,
     int tile, void* stream) {
-  // the wide instances take any widths above 128 (as multiples of SW)
+  // the cluster instance takes any widths above 128 (as multiples of SW)
   const bool wide = cmp > MAX_WIDTH || cop > MAX_WIDTH || ce > MAX_WIDTH;
   const int tile_h = tile >= 0 && tile < 3 ? TILE_H[tile] : 1;
   const bool widths_ok =
-      wide ? valid_wide(cmp, cm) && valid_wide(cop, co) && wide_fits(tile, cmp, ce)
+      wide ? valid_wide(cmp, cm) && valid_wide(cop, co) && tile >= 0 && tile < 3
            : valid_pad(cmp, cm) && valid_pad(cop, co) && (tile == 0 || tile == 2);
   if (x0 == nullptr || c0 <= 0 || c1 < 0 || c2 < 0 ||
       (c1 > 0 && x1 == nullptr) || (c2 > 0 && (x2 == nullptr || c1 == 0)) ||
@@ -1045,8 +1167,9 @@ extern "C" int hn_packed_double_conv(
   a.vec = vec;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) {
-    if (tile == 1) return (int)launch_wide<8, 8, 128>(a, B, cmp, cop, s);
-    return (int)launch_wide<4, 8, MAX_WIDE>(a, B, cmp, cop, s);
+    if (tile == 0) return (int)launch_cluster<8, 16>(a, B, cmp, cop, s);
+    if (tile == 1) return (int)launch_cluster<8, 8>(a, B, cmp, cop, s);
+    return (int)launch_cluster<4, 8>(a, B, cmp, cop, s);
   }
   if (cmp == 32 && cop == 32) return (int)launch_tile<32, 32>(a, B, tile, s);
   if (cmp == 32 && cop == 128) return (int)launch_tile<32, 128>(a, B, tile, s);

@@ -21,8 +21,9 @@ sums, biases and PReLU are f32, as on the TPU. So its plain version is
   output tile.
 - Mid, out and head widths up to 128 take the 128-wide instances; above
   that, up to `MAX_WIDTH` = 512 (g = 64 at C = 8, the widest at which the
-  TPU kernel runs), the wide instances, which cut N into slices of 128
-  (`SLICE`) and take the weights slice-major.
+  TPU kernel runs), the cluster instance: one thread-block cluster of
+  `cluster_size(cmp, cop)` CTAs a tile, each computing one slice of 128
+  (`SLICE`) mid and out channels, with the weights slice-major.
 - `packed_double_conv(params, x)` takes the schema dict or a
   `PackedWeights`. Shapes the kernel does not take raise on every device.
   CUDA tensors launch the kernel or raise; CPU tensors take the plain
@@ -50,7 +51,7 @@ CHUNK = 16  # input channels per K chunk of the kernel
 
 SMS = 132  # streaming multiprocessors of an H100 SXM
 # the kernel's `tile` argument indexes this, largest first: 8 x 16 and 4 x 8
-# for the 128-wide instances, 8 x 8 and 4 x 8 for the wide ones
+# for the 128-wide instances, all three for the cluster instance
 TILES = ((8, 16), (8, 8), (4, 8))
 
 
@@ -61,29 +62,41 @@ def is_wide(cm: int, co: int, ce: int = 0) -> bool:
 
 def tiles_for(cmp: int = NARROW, cop: Optional[int] = None, ce: int = 0) -> tuple:
     """The tiles of the instance for padded mid and out widths `cmp` and
-    `cop` (default `cmp`) and head width `ce`, largest first: the wide
-    8 x 8 holds the mid tile of at most 256 channels and the head
-    accumulators of at most 128."""
+    `cop` (default `cmp`) and head width `ce`, largest first: the cluster
+    instance holds one 128-channel slice of the mid tile a CTA, so it takes
+    every tile at every width."""
     if not is_wide(cmp, cmp if cop is None else cop, ce):
         return TILES[0], TILES[2]
-    return TILES[1:] if cmp <= 256 and ce <= NARROW else TILES[2:]
+    return TILES
 
 
-def _blocks(batch: int, height: int, width: int, tile) -> int:
-    return batch * -(-height // tile[0]) * -(-width // tile[1])
+def cluster_size(cmp: int = NARROW, cop: Optional[int] = None, ce: int = 0) -> int:
+    """CTAs a tile: `max(cmp, cop) / SLICE` for the cluster instance (one
+    per slice of mid or out channels: 2 at g = 32, 4 at g = 64), 1 for the
+    128-wide ones."""
+    cop = cmp if cop is None else cop
+    return max(cmp, cop) // SLICE if is_wide(cmp, cop, ce) else 1
+
+
+def ctas(batch: int, height: int, width: int, tile, cmp: int = NARROW,
+         cop: Optional[int] = None, ce: int = 0) -> int:
+    """The CTAs of one call: output tiles times `cluster_size`."""
+    tiles = batch * -(-height // tile[0]) * -(-width // tile[1])
+    return tiles * cluster_size(cmp, cop, ce)
 
 
 def tile_for(batch: int, height: int, width: int, cmp: int = NARROW,
              cop: Optional[int] = None, ce: int = 0) -> tuple[int, int]:
     """The kernel's output tile for a `batch` x `height` x `width` call of
     the instance for padded widths `cmp`, `cop` and head width `ce`: the
-    largest of `tiles_for(cmp, cop, ce)` that gives at least half as many blocks
-    as the card has SMs, or the smallest (at g = 16, batch 1: 8 x 16 at
-    256^2 and 128^2, 4 x 8 at 64^2 and below; at g = 32, 8 x 8 at 256^2
-    and 128^2, 4 x 8 below; at g = 64, 4 x 8)."""
+    largest of `tiles_for(cmp, cop, ce)` whose `ctas` are at least half as
+    many as the card has SMs, or the smallest (batch 1: at g = 16, 8 x 16
+    at 256^2 and 128^2, 4 x 8 below; at g = 32, 8 x 16 at 256^2 and
+    128^2, 8 x 8 at 64^2, 4 x 8 below; at g = 64, 8 x 16 down to 64^2,
+    4 x 8 below)."""
     tiles = tiles_for(cmp, cop, ce)
     for tile in tiles[:-1]:
-        if 2 * _blocks(batch, height, width, tile) >= SMS:
+        if 2 * ctas(batch, height, width, tile, cmp, cop, ce) >= SMS:
             return tile
     return tiles[-1]
 

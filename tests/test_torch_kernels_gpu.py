@@ -291,11 +291,15 @@ def test_k3_at_either_tile(cuda, tile):
         (9, (40,), 300, 200, 130),              # odd widths, a head above 128
         (17, (16, 16), 129, 20, None),          # mid 129: two slices
         (24, (8,), 20, 384, None),              # out 384, mid one slice
+        (32, (512, 128), 512, 512, None),       # enc[3] at g=64: 32 tiles, 8 x 8
+        (69, (256, 64), 256, 256, 64),          # ragged 69 x 137 on 8 x 16, head
     ],
 )
 def test_k3_wide_matches_plain(cuda, n, cins, cmid, cout, c_emit):
-    """The wide instances (mid, out or head above 128) at the widths of the
-    g = 32 and g = 64 packed steps and at odd ones."""
+    """The cluster instance (mid, out or head above 128) at the widths of
+    the g = 32 and g = 64 packed steps and at odd ones, on an n x (2n - 1)
+    grid at the tile `tile_for` picks: at a deep level, fewer tiles than
+    the card has SMs; on a ragged grid, 8 x 16."""
     rng = np.random.default_rng(n + cmid + cout)
     p = _params(rng, sum(cins), cmid, cout, cuda, c_emit=c_emit)
     p["c1"]["w"] = p["c1"]["w"] * 0.1
@@ -308,9 +312,9 @@ def test_k3_wide_matches_plain(cuda, n, cins, cmid, cout, c_emit):
     _check_k3(split, _inputs(rng, 1, n, 2 * n - 1, cins, cuda))
 
 
-@pytest.mark.parametrize("tile", [(8, 8), (4, 8)])
+@pytest.mark.parametrize("tile", [(8, 16), (8, 8), (4, 8)])
 def test_k3_wide_at_either_tile(cuda, tile):
-    """Each tile of the wide instance gives the plain version's result."""
+    """Each tile of the cluster instance gives the plain version's result."""
     from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv, prepare
 
     rng = np.random.default_rng(17)
@@ -323,6 +327,31 @@ def test_k3_wide_at_either_tile(cuda, tile):
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
                                atol=TOL * ref.abs().max().item())
+
+
+def test_k3_clusters_fit(cuda):
+    """Every tile of the cluster instance at 2, 3 and 4 CTAs a cluster
+    passes the launch's occupancy check and holds its plain version, in
+    the 128-wide instance's shared memory at that tile."""
+    from helmnet_tpu_torch._build import load_library
+    from helmnet_tpu_torch.ops.packed_double_conv import TILES, packed_double_conv, prepare
+
+    lib = load_library()
+    rng = np.random.default_rng(19)
+    for i, tile in enumerate(TILES):
+        for width in (256, 384, 512):
+            p = _params(rng, 16, width, 128, cuda)
+            parts = _inputs(rng, 1, 12, 20, (16,), cuda)
+            ref = double_conv_plain(p, parts)
+            got = packed_double_conv(prepare(p), parts, tile=tile)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(),
+                                       atol=TOL * ref.abs().max().item())
+        assert (lib.hn_packed_double_conv_smem(i, 512, 512)
+                == lib.hn_packed_double_conv_smem(i, 256, 128) > 0)
+        if i != 1:
+            assert (lib.hn_packed_double_conv_smem(i, 512, 512)
+                    == lib.hn_packed_double_conv_smem(i, 128, 128))
 
 
 def test_k3_relu_without_slope(cuda):
@@ -414,9 +443,12 @@ def _nan_field(shape, b, y, x, device):
         ("K3", 16, (8, 16), True),      # the 128-wide instance
         ("K3", 16, (4, 8), True),
         ("K3", 16, (4, 8), False),
-        ("K3", 32, (8, 8), True),       # the wide instances
+        ("K3", 32, (8, 8), True),       # the cluster instance
         ("K3", 32, (4, 8), True),
         ("K3", 64, (4, 8), True),
+        ("K3", 32, (8, 16), True),
+        ("K3", 64, (8, 16), True),
+        ("K3", 64, (8, 8), True),
     ],
 )
 def test_nan_mask_equals_plain(cuda, kernel, g, tile, act):

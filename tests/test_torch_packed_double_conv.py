@@ -20,6 +20,8 @@ from helmnet_tpu_torch.ops.packed_double_conv import (
     CHUNK,
     MAX_WIDTH,
     TILES,
+    cluster_size,
+    ctas,
     packed_double_conv,
     padded_width,
     prepare,
@@ -284,17 +286,35 @@ def test_wide_prepared_layout():
 
 
 def test_tiles_of_each_instance():
-    """The 128-wide instances take 8 x 16 and 4 x 8; the wide ones 8 x 8
-    (mid width up to 256, head up to 128) and 4 x 8; `tile_for` picks the
-    larger where it gives at least half as many blocks as the card has
-    SMs."""
+    """The 128-wide instances take 8 x 16 and 4 x 8, one CTA a tile; the
+    cluster instance takes 8 x 16, 8 x 8 and 4 x 8 at every width, with
+    max(cmp, cop) / 128 CTAs a tile; `tile_for` picks the largest whose
+    CTAs are at least half as many as the card has SMs."""
     assert tiles_for(128) == ((8, 16), (4, 8)) == tiles_for(32, ce=128)
-    assert tiles_for(256, ce=64) == ((8, 8), (4, 8))
-    assert tiles_for(512, ce=128) == ((4, 8),)
-    assert tiles_for(256, ce=136) == ((4, 8),)
-    assert tiles_for(128, 256) == ((8, 8), (4, 8))  # out width 256: wide
-    assert tile_for(1, 256, 256) == (8, 16) and tile_for(1, 64, 64) == (4, 8)
-    assert tile_for(1, 256, 256, 256, ce=64) == (8, 8)
-    assert tile_for(1, 128, 128, 256) == (8, 8)
-    assert tile_for(1, 64, 64, 256) == (4, 8)
-    assert tile_for(1, 256, 256, 512) == (4, 8)
+    assert tiles_for(256, ce=64) == TILES == tiles_for(512, ce=128)
+    assert tiles_for(256, ce=136) == TILES == tiles_for(128, ce=136)
+    assert tiles_for(128, 256) == TILES  # out width 256: the cluster
+    assert [cluster_size(*w) for w in [(128,), (32, 128, 128), (256,), (128, 384),
+                                       (384, 256, 130), (512,), (128, 128, 136)]] \
+        == [1, 1, 2, 3, 3, 4, 1]
+    # (batch, grid, cmp, cop, ce) -> (tile, CTAs): g = 16, 32 and 64 at
+    # 256^2 down to 16^2, batch 1, and a batch of 4
+    table = {
+        (1, 256, 128, 128, 0): ((8, 16), 512),
+        (1, 128, 128, 128, 0): ((8, 16), 128),
+        (1, 64, 128, 128, 0): ((4, 8), 128),
+        (1, 256, 256, 256, 0): ((8, 16), 1024),
+        (1, 128, 256, 256, 0): ((8, 16), 256),
+        (1, 64, 256, 256, 0): ((8, 8), 128),
+        (1, 32, 256, 256, 0): ((4, 8), 64),
+        (1, 256, 256, 256, 64): ((8, 16), 1024),
+        (1, 256, 512, 512, 0): ((8, 16), 2048),
+        (1, 64, 512, 512, 0): ((8, 16), 128),
+        (1, 32, 512, 512, 0): ((4, 8), 128),
+        (1, 16, 512, 512, 0): ((4, 8), 32),
+        (4, 32, 512, 512, 0): ((8, 16), 128),
+    }
+    for (b, n, cmp, cop, ce), (tile, count) in table.items():
+        assert tile_for(b, n, n, cmp, cop, ce) == tile
+        assert ctas(b, n, n, tile, cmp, cop, ce) == count
+    assert ctas(2, 17, 33, (8, 16), 384, 256) == 2 * 3 * 3 * 3

@@ -14,12 +14,18 @@ and K3 at the 14 calls of a packed 256^2 step at g = 16, 32 and 64
 random inputs, each call at the tile `tile_for` picks, its device time
 from CUDA events around a CUDA-graph replay (`chip_smoke.cuda_ms`: 50
 calls a graph, 10 at g = 32 and 64, as the phases). Prints one JSON line:
-the card's name and power limit, and per step the sum over its calls in
-ms. Needs a card; exits non-zero without one.
+the card's name and power limit, per step the sum over its calls in ms,
+and for each K3 call its grid, tile, ms, TFLOP/s (`chip_smoke.packed_bound`'s
+operations), and the weight bytes a design that reads the prepared w1, w2
+and w3 once a tile reads from L2 (`chip_smoke.k3_design_bytes`, a model,
+not measured) with the rate they imply. Both meters are this tree's
+`chip_smoke.py`, whatever tree `--root` times, so the two trees are
+measured alike. Needs a card; exits non-zero without one.
 """
 
 import argparse
 import dataclasses
+import importlib.util
 import json
 import os
 import subprocess
@@ -42,12 +48,18 @@ def main() -> int:
         print("k1k3_times: no CUDA device is available", file=sys.stderr)
         return 1
     import chip_smoke as cs
+
+    meter = cs
+    if root != HERE:
+        spec = importlib.util.spec_from_file_location("chip_smoke_meter", HERE / "chip_smoke.py")
+        meter = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(meter)
     from helmnet_tpu_torch import _build
     from helmnet_tpu_torch.core.config import Config
     from helmnet_tpu_torch.core.device import resolve_device
     from helmnet_tpu_torch.models.packed import pack_params, prepare_k3
     from helmnet_tpu_torch.ops.double_conv import fused_double_conv, prepare
-    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv
+    from helmnet_tpu_torch.ops.packed_double_conv import packed_double_conv, tile_for
     from helmnet_tpu_torch.weights import load_params_npz
 
     if not _build.__file__.startswith(str(root)):
@@ -65,7 +77,7 @@ def main() -> int:
     params = load_params_npz("trained_models/round1_best_epoch890.npz", cfg, device=dev)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    steps = {}
+    steps, calls = {}, {}
     k1 = []
     for _, p, n, cins in cs.step_calls(params, model, cs.GRID):
         parts = tuple(torch.randn((cs.BATCH, n, n, c), generator=gen, device=dev)
@@ -75,15 +87,23 @@ def main() -> int:
     steps[f"K1 {cs.GRID}^2 x {cs.BATCH}"] = sum(k1)
     for g, iters in ((cs.PACK_G, 50), *((gw, cs.WIDE_ITERS) for gw in cs.WIDE_STEPS)):
         kparams = prepare_k3(pack_params(params, g), model, g, inc_splits=(2, 2, 2))
-        k3 = []
-        for _, pw, n, cins in cs.packed_step_calls(kparams, model, cs.PACK_GRID):
+        k3, rows = [], []
+        for name, pw, n, cins in cs.packed_step_calls(kparams, model, cs.PACK_GRID):
             parts = tuple(torch.randn((1, n, n, c), generator=gen, device=dev)
                           for c in cins)
             k3.append(cs.cuda_ms(lambda: packed_double_conv(pw, parts), iters))
+            th, tw = tile_for(1, n, n, pw.cmp, pw.cop, pw.ce)
+            wbytes = meter.k3_design_bytes(pw, -(-n // th) * -(-n // tw))
+            flops = meter.packed_bound(pw, parts, packed_double_conv(pw, parts))[0]
+            rows.append({"name": name, "grid": n, "tile": f"{th}x{tw}", "ms": k3[-1],
+                         "tflops": flops / k3[-1] / 1e9,
+                         "design_l2_gb": wbytes / 1e9,
+                         "design_l2_tb_s": wbytes / k3[-1] / 1e9})
         steps[f"K3 {cs.PACK_GRID}^2 g={g}"] = sum(k3)
+        calls[f"K3 {cs.PACK_GRID}^2 g={g}"] = rows
         del kparams
     print(json.dumps({"label": args.label, "root": str(root), "nvidia_smi": smi,
-                      "ms_per_step": steps}), flush=True)
+                      "ms_per_step": steps, "k3_calls": calls}), flush=True)
     return 0
 
 

@@ -18,7 +18,8 @@ weights, the distribution modules on NCCL, and the skull solve at
 512^2, `produce_figures`' compute path, the sanitizers and the dry run,
 and the 1024^2 train step and K1 rollout on the fft operator (the split
 grid's single-card end) and the CSLP-preconditioned GMRES on the split
-grid at 1024^2, and checks them all:
+grid at 1024^2, and the JAX package's orbax training runs read without
+JAX (evaluated on K1 and resumed), and checks them all:
 
 1. device: name, count, and `nvidia-smi`'s name and power limit;
 2. build: the `nvcc` build of the CUDA kernels and, for every instance
@@ -293,7 +294,24 @@ grid at 1024^2, and checks them all:
    cycle, the preconditioned final residual below the unpreconditioned
    one, the reported final residual within rtol 1e-3 of one recomputed
    with the matmul operator, no hand-kernel launch; each solve's wall and
-   the split solve's device time and busy share.
+   the split solve's device time and busy share;
+19. the JAX package's orbax runs (`orbax_phase`), read with numpy alone
+   (train/orbax.py: OCDBT, zarr v2, zstd) from copies under
+   build/phase19: (a) checkpoints/tpu_r2c's best step (940) equal to the
+   bit to trained_models/tpu_r2c_best.npz, and tpu_r3c1024's best step
+   (40), every params leaf and Adam moment finite and of its template's
+   shape, the read seconds per step; (b) 17c's 4 x 1024^2 x 50 rollout
+   with tpu_r3c1024's params: exactly 700 K1 launches, finite, the first
+   4 rmse within rtol 0.05 of a cuDNN f32 forward, gridpoints/s beside
+   17c's; (c) `Trainer.restore` of tpu_r3c1024 at 17b's TRAINING1024.md
+   configuration: the latest step (104), its stored epoch and global
+   step, the manifest's lr 1e-5 and bad_epochs 2, the Adam moments and
+   count equal to the step's mu, nu and count, then 3 steps with finite
+   losses and the global step 3 on; (d) the shape routes: a 'pallas'
+   model at 32 features launches no K1 and equals its 'xla' twin (cuDNN
+   deterministic), and a packed apply at g = 128 (widths 1024) launches
+   K3 exactly at its 4 conv_state DoubleConvs (widths 256) and is within
+   atol 2e-2 max|ref| of its 'xla' twin, outputs and states.
 
 Needs one card. Without one, or without the package beside it, it exits
 non-zero before printing any result. A watchdog ends a hung run with a
@@ -311,6 +329,7 @@ import argparse  # noqa: E402
 import contextlib  # noqa: E402
 import dataclasses  # noqa: E402
 import json  # noqa: E402
+import os  # noqa: E402
 import subprocess  # noqa: E402
 
 import numpy as np  # noqa: E402
@@ -415,6 +434,10 @@ SPLIT_MAPS, SPLIT_ITERS, SPLIT_PROFILE_STEPS = 4, 50, 10  # 17c
 CSLP_RESTART, CSLP_CYCLES, CSLP_TOL = 20, 10, 1e-6  # 18: the CSLP solves at 1024^2
 CSLP_RTOL = 1e-5  # 18: * max|ref|, the split inverse against the unsplit one
 CSLP_HISTORY = 2.0  # 18: split against unsplit true residual, at every cycle
+ORBAX_RUNS = {"tpu_r2c": 940, "tpu_r3c1024": 40}  # 19a: each run's best step
+ORBAX_COPIES = "build/phase19"  # 19: copies of the runs (build/ is git-ignored)
+ORBAX_TRAIN_STEPS = 3  # 19c
+ROUTE_G, ROUTE_GRID = 128, 64  # 19d: a packed apply at widths 1024 (and 256)
 
 
 def log(msg: str) -> None:
@@ -1294,7 +1317,6 @@ def serve_phase(dev, hand_kernels) -> dict:
     `hand_kernels()` reads the launch counts of K2a, K2b, K2c, K1 and K3."""
     import importlib.util
     import json as _json
-    import os
     import tempfile
     import urllib.request
     from concurrent.futures import ThreadPoolExecutor
@@ -1771,7 +1793,6 @@ def solvers3d_phase(dev, hand_kernels) -> dict:
     package has no 3D Pallas kernel): every path's K1-K3 counts must stay 0.
     Every gate failure exits; the returned dict holds what was measured.
     `hand_kernels()` reads the launch counts of K2a, K2b, K2c, K1 and K3."""
-    import os
     import tempfile
 
     from helmnet_tpu_torch.data.ellipsoids3d import make_dataset3d
@@ -3086,6 +3107,238 @@ def cslp_split_phase(dev, cfg, hand_kernels) -> dict:
     return out
 
 
+def orbax_phase(dev, cfg, cfg_kernel, cfg_cudnn, split, hand_kernels) -> dict:
+    """Phase 19: the JAX package's orbax training runs, read on the card's
+    machine without JAX, orbax, tensorstore or zstandard (train/orbax.py),
+    from copies under `ORBAX_COPIES`: (a) tpu_r2c's and tpu_r3c1024's best
+    steps, read and held against the committed npz and their templates;
+    (b) 17c's 1024^2 rollout with tpu_r3c1024's params on K1; (c)
+    `Trainer.restore` of tpu_r3c1024 at TRAINING1024.md's configuration
+    and 3 steps on; (d) the shape routes: a 'pallas' model at 32 features
+    (no DoubleConv K1 takes) and a packed apply at g = 128 (K3 takes only
+    the conv_state DoubleConvs, widths 256), each against its cuDNN twin.
+    Every gate failure exits; the returned dict holds what was measured.
+    `split` is phase 17's result (17c's rate is printed beside 19b's)."""
+    import shutil
+
+    from helmnet_tpu_torch.core.config import ModelConfig
+    from helmnet_tpu_torch.data.ellipses import make_dataset
+    from helmnet_tpu_torch.models import hybridnet, packed
+    from helmnet_tpu_torch.models.hybridnet import iter_leaves
+    from helmnet_tpu_torch.ops.source import point_source_map
+    from helmnet_tpu_torch.ops.spectral import make_operator
+    from helmnet_tpu_torch.solvers.iterative import IterativeSolver, rollout
+    from helmnet_tpu_torch.train.checkpoint import latest_step, manifest_extra
+    from helmnet_tpu_torch.train.loop import Trainer
+    from helmnet_tpu_torch.train.orbax import read_step, train_state
+    from helmnet_tpu_torch.weights import from_jax_params, load_params_npz
+
+    t0 = time.perf_counter()
+    out = {}
+    shutil.rmtree(ORBAX_COPIES, ignore_errors=True)
+    runs = {}
+    for run in ORBAX_RUNS:
+        runs[run] = os.path.join(ORBAX_COPIES, run)
+        shutil.copytree(os.path.join("checkpoints", run), runs[run])
+    finite = lambda t: bool(torch.isfinite(t).all())
+
+    # -- 19a: each run's best step, read with numpy alone -----------------------
+    npz = load_params_npz(R2C_NPZ, cfg_kernel, device=dev)
+    reads = {}
+    for run, step in ORBAX_RUNS.items():
+        step_dir = os.path.join(runs[run], f"step_{step}")
+        t = time.perf_counter()
+        read_step(step_dir)
+        read_s = time.perf_counter() - t
+        t = time.perf_counter()
+        solver = IterativeSolver.from_orbax_checkpoint(runs[run], config=cfg_kernel,
+                                                       device=dev)
+        state = train_state(step_dir, device=dev)
+        load_s = time.perf_counter() - t
+        template = dict(iter_leaves(solver.params))
+        leaves = list(iter_leaves(state["params"]))
+        moments = [t for s in state["opt_state"]["state"].values()
+                   for t in (s["exp_avg"], s["exp_avg_sq"])]
+        shapes_ok = (len(moments) == 2 * len(leaves) == 2 * len(template)
+                     and all(tuple(a.shape) == tuple(template[p].shape) for p, a in leaves)
+                     and all(tuple(m.shape) == tuple(a.shape)
+                             for m, (_, a) in zip(moments[::2], leaves)))
+        all_finite = all(finite(a) for _, a in leaves) and all(map(finite, moments))
+        same_step = all(torch.equal(a, template[p]) for p, a in leaves)
+        reads[run] = {"step": step, "read_s": read_s, "load_s": load_s,
+                      "leaves": len(leaves), "epoch": state["epoch"],
+                      "global_step": state["global_step"]}
+        log(f"phase 19a {run} step {step}: read_step {read_s:.3f} s (numpy), solver and "
+            f"train state {load_s:.3f} s; {len(leaves)} params leaves and "
+            f"{len(moments)} Adam moments, shapes as the template: {shapes_ok}, finite: "
+            f"{all_finite}; the solver's best step is this one: {same_step}; epoch "
+            f"{state['epoch']}, global step {state['global_step']}")
+        if not (shapes_ok and all_finite and same_step):
+            fail(f"the orbax step {run}/step_{step} is not the template's or not finite")
+        if run == "tpu_r2c":
+            equal = all(torch.equal(a, b) for (_, a), (_, b)
+                        in zip(leaves, iter_leaves(npz)))
+            log(f"phase 19a tpu_r2c step {step} against {R2C_NPZ}: equal to the bit: {equal}")
+            if not equal:
+                fail("tpu_r2c's orbax params differ from the committed npz")
+    out["reads"] = reads
+    r3c = IterativeSolver.from_orbax_checkpoint(runs["tpu_r3c1024"], config=cfg_kernel,
+                                                device=dev).params
+
+    # -- 19b: 17c's rollout with tpu_r3c1024's params ----------------------------
+    n, g = SPLIT_GRID, cfg.geometry
+    scale = n / g.domain_size
+    loc = tuple(int(round(c * scale)) for c in cfg.source.location)
+    geometry = dataclasses.replace(g, domain_size=n)
+    source_cfg = dataclasses.replace(cfg.source, location=loc)
+    cfg_r = cfg_kernel.replace(geometry=geometry, source=source_cfg)
+    cfg_x = cfg_cudnn.replace(geometry=geometry, source=source_cfg)
+    op = make_operator(n, n, g.pml_size, g.sigma_max, cfg.k0, device=dev)
+    sos = make_dataset(SPLIT_MAPS, n, seed=42)
+    s = cfg_r.source
+    source = point_source_map(n, n, loc, s.amplitude, s.phase, s.omega)[None]
+    run_ = lambda cfg_, iters: rollout(r3c, op, source, sos, cfg=cfg_, num_iterations=iters,
+                                       collect=("rmse",), device=dev)
+    run_(cfg_r, 2)  # warm-up
+    reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = run_(cfg_r, SPLIT_ITERS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = hand_kernels()
+    rmse = res["rmse"].cpu().numpy()
+    with deterministic_cudnn():
+        ref = run_(cfg_x, 4)["rmse"].cpu().numpy()
+    early = (np.abs(rmse[:4] - ref) / ref).max()
+    gps = SPLIT_MAPS * n * n * SPLIT_ITERS / wall
+    steps = 14  # K1 launches a learned step (phase 4)
+    log(f"phase 19b rollout {SPLIT_MAPS} x {n}^2 x {SPLIT_ITERS} ('pallas', tpu_r3c1024 "
+        f"step 40, fft operator): {wall:.3f} s, {gps:.4e} gridpoints/s (17c with "
+        f"tpu_r2c: {split['rollout']['gridpoints_per_s']:.4e}), launches "
+        f"K2a/K2b/K2c/K1/K3 {counts}; rmse {rmse[0].max():.4e} -> {rmse[-1].max():.4e}, "
+        f"first 4 against 'xla' f32 max rel diff {early:.3e} (rtol {EARLY_RTOL})")
+    if counts != (0, 0, 0, steps * SPLIT_ITERS, 0):
+        fail(f"the tpu_r3c1024 rollout launched {counts}, not {steps * SPLIT_ITERS} K1 alone")
+    if not (np.isfinite(rmse).all() and early <= EARLY_RTOL):
+        fail("the tpu_r3c1024 rollout on K1 is not finite or disagrees with cuDNN f32")
+    out["rollout"] = {"seconds": wall, "gridpoints_per_s": gps, "k1_launches": counts[3],
+                      "rmse": rmse[[0, -1]].tolist(), "early_rel_diff": float(early),
+                      "split_17c_gridpoints_per_s": split["rollout"]["gridpoints_per_s"]}
+    del res, sos
+
+    # -- 19c: Trainer.restore of tpu_r3c1024 (TRAINING1024.md) -------------------
+    cfg_t = cfg.replace(geometry=geometry, source=source_cfg,
+                        training=dataclasses.replace(cfg.training, **SPLIT_TRAIN))
+    run_dir = runs["tpu_r3c1024"]
+    last = latest_step(run_dir)
+    stored = read_step(os.path.join(run_dir, f"step_{last}"))
+    sched = manifest_extra(run_dir, last)
+    reset_counts()
+    tr = Trainer(cfg_t, device=dev, device_buffer=True)
+    t = time.perf_counter()
+    restored = tr.restore(run_dir)
+    restore_s = time.perf_counter() - t
+    adam = next(e for e in stored["opt_state"]["inner_state"]
+                if isinstance(e, dict) and "mu" in e)
+    mu = iter_leaves(from_jax_params(adam["mu"], device=dev))
+    nu = iter_leaves(from_jax_params(adam["nu"], device=dev))
+    moments_equal = all(
+        torch.equal(tr.optimizer.state[leaf]["exp_avg"], m)
+        and torch.equal(tr.optimizer.state[leaf]["exp_avg_sq"], v)
+        and float(tr.optimizer.state[leaf]["step"]) == int(adam["count"])
+        for (_, leaf), (_, m), (_, v) in zip(iter_leaves(tr.params), mu, nu))
+    epoch0, step0 = tr.epoch, tr.global_step
+    state_ok = (restored and last == 104 and epoch0 == int(stored["epoch"])
+                and step0 == int(stored["global_step"])
+                and tr.scheduler.lr == sched["lr"] == 1e-5 and tr.scheduler.bad_epochs == 2
+                and tr.optimizer.param_groups[0]["lr"]
+                == float(np.float32(stored["opt_state"]["hyperparams"]["learning_rate"])))
+    tr.fill_buffer(make_dataset(SPLIT_TRAIN["buffer_size"], n, seed=42))
+    maxiter = tr.max_allowed_iterations()
+    losses, walls = [], []
+    for _ in range(ORBAX_TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(float(tr.device_step(maxiter)["loss"]))
+        walls.append(time.perf_counter() - t)
+    launched = hand_kernels()
+    log(f"phase 19c Trainer.restore of tpu_r3c1024 at {n}^2 (TRAINING1024.md: batch "
+        f"{SPLIT_TRAIN['train_batch_size']} x {SPLIT_TRAIN['unrolling_steps']} unrolled, "
+        f"'xla', fft operator, device buffer) in {restore_s:.3f} s: step {last}, epoch "
+        f"{epoch0}, global step {step0}, scheduler lr {tr.scheduler.lr} best "
+        f"{tr.scheduler.best} bad_epochs {tr.scheduler.bad_epochs}, optimizer lr "
+        f"{tr.optimizer.param_groups[0]['lr']}: as stored: {state_ok}; exp_avg / "
+        f"exp_avg_sq / step equal to the step's mu / nu / count: {moments_equal}; "
+        f"{ORBAX_TRAIN_STEPS} steps on: losses {losses}, wall per step "
+        f"{[round(w, 4) for w in walls]} s, global step {tr.global_step}; "
+        f"hand-kernel launches {launched}")
+    if not (state_ok and moments_equal):
+        fail("Trainer.restore of tpu_r3c1024 did not bring back the stored state")
+    if not (all(np.isfinite(losses)) and tr.global_step == step0 + ORBAX_TRAIN_STEPS):
+        fail("the restored 1024^2 run does not go on with finite losses")
+    out["restore"] = {"step": last, "epoch": epoch0, "global_step": step0,
+                      "restore_s": restore_s, "losses": losses, "wall_s": walls,
+                      "scheduler": {"lr": tr.scheduler.lr, "best": tr.scheduler.best,
+                                    "bad_epochs": tr.scheduler.bad_epochs}}
+    del tr
+
+    # -- 19d: the shape routes --------------------------------------------------
+    m, b = GRID, 4
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rnd = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    wide = ModelConfig(features=32, precision="default", double_conv_mode="pallas")
+    wide_x = dataclasses.replace(wide, double_conv_mode="xla")
+    wparams = hybridnet.init_params(torch.Generator().manual_seed(0), wide)
+    wparams = hybridnet.map_leaves(wparams, lambda _, t: t.to(dev))
+    x, states = rnd(b, m, m, wide.in_channels), tuple(
+        rnd(*s.shape) for s in hybridnet.init_states(b, m, wide, device=dev))
+    worst = lambda a, b: max((u - v).abs().max().item() / v.abs().max().item()
+                             for u, v in zip(a, b))
+    with deterministic_cudnn():
+        reset_counts()
+        got, got_s = hybridnet.apply(hybridnet.prepare_k1(wparams, wide), x, states,
+                                     cfg=wide)
+        k1_wide = hand_kernels()
+        want, want_s = hybridnet.apply(wparams, x, states, cfg=wide_x)
+    wide_err = worst((got, *got_s), (want, *want_s))
+    model = cfg_kernel.model
+    n_p = ROUTE_GRID
+    kp = packed.prepare_k3(packed.pack_params(npz, ROUTE_G), model, ROUTE_G, (2, 2, 2))
+    takes = sum(packed.K3_KEY in site for site in
+                [kp["inc"], *kp["decode"]] + [v for blk in kp["enc"] for k, v in blk.items()
+                                              if k.startswith("conv_")])
+    parts = tuple(rnd(1, n_p, n_p, 2 * ROUTE_G) for _ in range(3))
+    pstates = tuple(rnd(1, n_p >> d, n_p >> d, ROUTE_G * model.state_channels)
+                    for d in range(model.state_depth))
+    with deterministic_cudnn():
+        reset_counts()
+        pg, pg_s = packed.apply_packed(kp, parts, pstates, cfg=model, g=ROUTE_G)
+        k3_wide = hand_kernels()
+        pw_, pw_s = packed.apply_packed(packed.pack_params(npz, ROUTE_G), parts, pstates,
+                                        cfg=cfg_cudnn.model, g=ROUTE_G)
+    # the conv_state DoubleConvs (on K3) make the new states
+    packed_err = worst((pg, *pg_s), (pw_, *pw_s))
+    log(f"phase 19d 'pallas' at 32 features ({b} x {m}^2): launches K2a/K2b/K2c/K1/K3 "
+        f"{k1_wide}, against its 'xla' twin max|err| / max|ref| {wide_err:.3e} (limit "
+        f"{KERNEL_RTOL}); packed apply g={ROUTE_G} at {n_p}^2 (widths {8 * ROUTE_G}, "
+        f"conv_state {2 * ROUTE_G}): K3 takes {takes} of 14 DoubleConvs, launches "
+        f"{k3_wide}, against its 'xla' twin {packed_err:.3e} (limit {KERNEL_RTOL})")
+    if k1_wide != (0, 0, 0, 0, 0) or not (all(map(finite, (got, *got_s)))
+                                          and wide_err <= KERNEL_RTOL):
+        fail("the 32-feature 'pallas' model reached K1 or disagrees with cuDNN")
+    if (takes != model.state_depth or k3_wide != (0, 0, 0, 0, takes)
+            or not (all(map(finite, (pg, *pg_s))) and packed_err <= KERNEL_RTOL)):
+        fail("the g=128 packed apply took K3 where it should not, or disagrees")
+    out["routes"] = {"wide_k1_launches": k1_wide[3], "wide_rel_err": wide_err,
+                     "packed_k3_launches": k3_wide[4], "packed_k3_sites": takes,
+                     "packed_rel_err": packed_err}
+    shutil.rmtree(ORBAX_COPIES, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"phase 19 done in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", help="also write the results as JSON here")
@@ -3747,6 +4000,9 @@ def main() -> int:
     # -- 18. the CSLP preconditioner on the split grid at 1024^2 ------------
     cslp_split = cslp_split_phase(dev, cfg, hand_kernel_counts)
 
+    # -- 19. the JAX package's orbax runs, and the shape routes --------------
+    orbax = orbax_phase(dev, cfg, cfg_kernel, cfg_cudnn, split, hand_kernel_counts)
+
     total = lambda k: sum(r[k] for r in rows)
     k3_total = lambda k: sum(r[k] for r in k3_rows)
     kernels = {"kernels": [{
@@ -3779,6 +4035,9 @@ def main() -> int:
                 last["sanitize"]["k1_launches"],
             f"17c rollout {SPLIT_GRID}^2 x {SPLIT_MAPS} x {SPLIT_ITERS}":
                 split["rollout"]["k1_launches"],
+            f"19b rollout tpu_r3c1024 {SPLIT_GRID}^2 x {SPLIT_MAPS} x {SPLIT_ITERS}":
+                orbax["rollout"]["k1_launches"],
+            "19d 'pallas' at 32 features": orbax["routes"]["wide_k1_launches"],
         },
         # a step at 17c's 1024^2 x 4: the sum over its 14 calls
         "step_1024": {k: split["rollout"]["k1_step"][k]
@@ -3804,6 +4063,7 @@ def main() -> int:
                 k3_launches,
             f"7b rollout_packed g={WIDE_G} {PACK_GRID}^2 x {WIDE_MAPS} x {PACK_ITERS}":
                 wide_packed["k3_launches"],
+            f"19d apply_packed g={ROUTE_G} {ROUTE_GRID}^2": orbax["routes"]["packed_k3_launches"],
             **by_path3d(4),
         },
         # the wide instances: a packed step's 14 calls at g = 32 and 64 (6b)
@@ -3874,7 +4134,7 @@ def main() -> int:
                            "profile": gmres_profile},
                        "training": training, "classical": classical,
                        "serving": serving, "solvers3d": solvers3d, "last_slice": last,
-                       "split_grid": split, "cslp_split": cslp_split,
+                       "split_grid": split, "cslp_split": cslp_split, "orbax": orbax,
                        **kernels}, fh, indent=1)
     log("done")
     faulthandler.cancel_dump_traceback_later()

@@ -4,9 +4,10 @@ evaluate.py + test_step/test_epoch_end).
     python -m helmnet_tpu_torch.cli.evaluate --checkpoint model.ckpt \\
         --testset datasets/eval256/maps.npz [--platform cpu]
 
-`--checkpoint` takes a reference `.ckpt` or a flat params `.npz` (for an
-orbax run, the file `tools/export_orbax_npz.py` writes, e.g.
-trained_models/tpu_r2c_best.npz); an orbax directory is refused.
+`--checkpoint` takes an orbax training run of the JAX package (a
+directory such as checkpoints/tpu_r3c1024, read at its best step with
+the default config, as JAX's CLI reads it), a flat params `.npz` (e.g.
+trained_models/tpu_r2c_best.npz) or a reference `.ckpt`.
 
 Runs the learned solver over a test set on the card (`--platform cuda`,
 the default) or the CPU, saving the artifacts the reference produces
@@ -31,7 +32,7 @@ import numpy as np
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", type=str, required=True,
-                   help=".ckpt (reference torch) or params .npz")
+                   help="orbax run directory, params .npz or reference .ckpt")
     p.add_argument("--testset", type=str, required=True, help="npz of sos maps")
     p.add_argument("--iterations", type=int, default=1000)
     p.add_argument("--batch", type=int, default=32)
@@ -50,18 +51,11 @@ def main(argv=None):
 
     from ..core.device import resolve_device
     from ..data.ellipses import load_maps
-    from ..solvers.iterative import IterativeSolver
-    from ..weights import ORBAX_REFUSAL
+    from ..solvers.iterative import load_solver
 
-    if os.path.isdir(args.checkpoint):
-        raise SystemExit(f"{args.checkpoint} {ORBAX_REFUSAL}")
     # cuda goes through the default, which raises without a card
     device = resolve_device(None if args.platform == "cuda" else args.platform)
-    if args.checkpoint.endswith(".npz"):
-        solver = IterativeSolver.from_params_npz(args.checkpoint, device=device)
-    else:
-        solver = IterativeSolver.from_reference_checkpoint(args.checkpoint,
-                                                           device=device)
+    solver = load_solver(args.checkpoint, device=device)
     maps = load_maps(args.testset)
     if args.limit:
         maps = maps[: args.limit]

@@ -6,8 +6,8 @@ part of the wavefield.
     python -m helmnet_tpu_torch.cli.example \\
         --checkpoint trained_models/tpu_r2c_best.npz --out wavefield.png
 
-`--checkpoint` takes a flat params `.npz` or a reference `.ckpt`, read
-with the default config (an orbax directory is refused). `--platform
+`--checkpoint` takes an orbax run directory (its best step), a flat
+params `.npz` or a reference `.ckpt`, read with the default config. `--platform
 cuda` (the default) runs on the card and raises without one. The solve
 is `simple_scattering`, which needs no matplotlib; `main` also plots.
 """

@@ -4,10 +4,10 @@
     python -m helmnet_tpu_torch.cli.produce_figures --checkpoint X.ckpt|X.npz \\
         --testset datasets/splitted_96/testset.npz --out figures [--platform cpu]
 
-`--checkpoint` takes a reference `.ckpt` or a flat params `.npz` (for an
-orbax run, the file `tools/export_orbax_npz.py` writes, e.g.
-trained_models/tpu_r2c_best.npz), as `cli/evaluate` does; `--orbax`
-raises, naming the export tool. The solves run on the card
+`--checkpoint` takes an orbax run directory, a flat params `.npz` or a
+reference `.ckpt`, as `cli/evaluate` does; `--orbax DIR [--step N]`
+reads an orbax run at step N (default: the manifest's best), as the JAX
+CLI does. The solves run on the card
 (`--platform cuda`, the default; `--device` is the same flag) or the CPU;
 the figures are drawn on the host with matplotlib.
 
@@ -25,11 +25,11 @@ import numpy as np
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--checkpoint", type=str, default=None,
-                   help=".ckpt (reference torch) or params .npz")
+                   help="orbax run directory, params .npz or reference .ckpt")
     p.add_argument("--orbax", type=str, default=None,
-                   help="refused: export the run with tools/export_orbax_npz.py")
+                   help="orbax checkpoint directory of a training run")
     p.add_argument("--step", type=int, default=None,
-                   help="explicit orbax step (with --orbax; refused)")
+                   help="explicit orbax step (with --orbax)")
     p.add_argument("--testset", type=str, default=None)
     p.add_argument("--out", type=str, default="figures")
     p.add_argument("--num-samples", type=int, default=20)
@@ -53,22 +53,16 @@ def main(argv=None):
     from ..data.ellipses import load_maps, make_dataset
     from ..eval import figures
     from ..eval.harness import compare_solvers
-    from ..solvers.iterative import IterativeSolver
-    from ..weights import ORBAX_REFUSAL
+    from ..solvers.iterative import IterativeSolver, load_solver
 
     if bool(args.checkpoint) == bool(args.orbax):
         p.error("exactly one of --checkpoint / --orbax is required")
-    if args.orbax:
-        raise SystemExit(f"{args.orbax} {ORBAX_REFUSAL}")
-    if os.path.isdir(args.checkpoint):
-        raise SystemExit(f"{args.checkpoint} {ORBAX_REFUSAL}")
     # cuda goes through the default, which raises without a card
     device = resolve_device(None if args.platform == "cuda" else args.platform)
     solver = (
-        IterativeSolver.from_params_npz(args.checkpoint, device=device)
-        if args.checkpoint.endswith(".npz")
-        else IterativeSolver.from_reference_checkpoint(args.checkpoint,
-                                                       device=device)
+        load_solver(args.checkpoint, device=device) if args.checkpoint
+        else IterativeSolver.from_orbax_checkpoint(args.orbax, step=args.step,
+                                                   device=device)
     )
     if args.testset and os.path.exists(args.testset):
         maps = load_maps(args.testset)[: args.num_samples]

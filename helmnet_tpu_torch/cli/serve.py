@@ -17,9 +17,9 @@ thread owns the card, so concurrency is bounded by micro-batching, not by
 HTTP threads. A deployment reference, not a hardened proxy: put real
 auth and limits in front of it.
 
-`--checkpoint` takes a flat params `.npz` or a reference `.ckpt` (an
-orbax directory is refused, naming tools/export_orbax_npz.py), read with
-the default config. `--platform cuda` (the default) runs on the card and
+`--checkpoint` takes an orbax run directory of the JAX package (its best
+step, e.g. checkpoints/tpu_r3c1024), a flat params `.npz` or a
+reference `.ckpt`, read with the default config. `--platform cuda` (the default) runs on the card and
 raises without one; `--platform cpu` runs on the CPU. `--port 0` picks
 a free port; the `serving on http://HOST:PORT` line names it.
 """
@@ -101,7 +101,7 @@ def serve_forever(service, host: str = "127.0.0.1", port: int = 8871):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--checkpoint", required=True,
-                    help="params .npz or reference .ckpt")
+                    help="orbax run directory, params .npz or reference .ckpt")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=8871)
     ap.add_argument("--max-batch", type=int, default=8)

@@ -10,9 +10,9 @@ problem's grid size, wavelengths across and heterogeneity, and says why.
         --out solution.npz [--platform cpu]
 
 Runs on the card (`--platform cuda`, the default; raises without one) or
-the CPU. `--checkpoint` takes a flat params `.npz` (from
-`tools/export_orbax_npz.py`) or a reference `.ckpt`; an orbax directory
-is refused. With --dry-run it prints the plan (method, rationale,
+the CPU. `--checkpoint` takes an orbax training run of the JAX package
+(a directory, read at its best step), a flat params `.npz` or a
+reference `.ckpt`. With --dry-run it prints the plan (method, rationale,
 evidence) without solving. A [D, H, W] cube is a 3D problem; its default
 point source is the 2D default scaled to the grid, at the middle of the
 last axis (`ops/spectral3d.point_source_map3d`).
@@ -26,12 +26,14 @@ import numpy as np
 
 
 def load_checkpoint_params(path: str, cfg, device):
-    """Params from a flat params `.npz` or a reference `.ckpt`; an orbax
-    directory raises SystemExit."""
-    from ..weights import ORBAX_REFUSAL
-
+    """Params from an orbax run directory (its best step, as JAX's CLI
+    takes it), a flat params `.npz` or a reference `.ckpt`."""
     if os.path.isdir(path):
-        raise SystemExit(f"{path} {ORBAX_REFUSAL}")
+        from ..train.checkpoint import pick_step
+        from ..weights import load_params_orbax
+
+        return load_params_orbax(os.path.join(path, f"step_{pick_step(path)}"),
+                                 cfg, device=device)
     if path.endswith(".npz"):
         from ..weights import load_params_npz
 
@@ -47,7 +49,8 @@ def main(argv=None):
                    help="npz with 'maps' (or a single 2D array)")
     p.add_argument("--index", type=int, default=0)
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="params .npz or reference .ckpt (enables the learned family)")
+                   help="orbax run directory, params .npz or reference .ckpt "
+                        "(enables the learned family)")
     p.add_argument("--source-location", type=int, nargs="+", default=None)
     p.add_argument("--source-npz", type=str, default=None,
                    help="npz with a [H, W, 2] (or [D, H, W, 2]) source map; overrides "

@@ -24,6 +24,12 @@ without --data-parallel), ranks host-major. Without --coordinator the
 rendezvous comes from the environment (torchrun's `env://`, one rank a
 process). Every rank trains the same replicated loop (train/loop.py);
 only rank 0 writes logs and checkpoints.
+
+`--ckpt-dir DIR` resumes from DIR's latest step and keeps the top-k steps
+there: a step of the port's (`state.pt`) or one the JAX package wrote with
+orbax (a JAX run such as checkpoints/tpu_r3c1024, copied first, since the
+run goes on writing and pruning there), with its Adam state, epoch,
+global step and learning-rate schedule.
 """
 
 import argparse

@@ -10,18 +10,20 @@ for encoder level d < state_depth. `flatten_states` / `unflatten_states`
 keep the reference's flat `[B, C, sum(n_d^2)]` channel-first layout.
 
 `double_conv_mode='pallas'` (with precision 'default' and PReLU or ReLU)
-sends every DoubleConv to the fused CUDA kernel (ops/double_conv.py): 14
-per step at depth 4, with the 1x1 outc head folded into the last one. The
-JAX package falls back to XLA at the 24^2, 12^2 and 6^2 levels only
-because its TPU kernel packs 16 pixels per lane row
-(`pallas_pixconv.py:234-247`); the CUDA kernel masks ragged tiles and has
-no such limit, and the function computed is the same. A width the
-kernel does not take (more than 16 channels) raises there; it does not
-fall back. `prepare_k1` converts the kernel's weights once
+sends each DoubleConv that the fused CUDA kernel K1 takes
+(`ops.double_conv.supported`: at most 16 channels and 2 input parts) to
+it, and the others to the cuDNN convs, as the JAX package routes by
+`pix_supported` between its kernel and XLA (`hybridnet.py:113-138`): the
+default model's 14 a step at depth 4, with the 1x1 outc head folded into
+the last one, and none of a 32-feature model's. The choice is made from
+shapes before any launch, and a launch that fails raises. JAX's kernel
+also leaves the 24^2, 12^2 and 6^2 levels to XLA, only because it packs
+16 pixels per lane row (`pallas_pixconv.py:234-247`); K1 masks ragged
+tiles and takes them. `prepare_k1` converts the kernel's weights once
 (`solvers/iterative.rollout` calls it through `prepare_params` once per
-rollout) and keeps them
-under `K1_KEY`; `apply` converts them in the call where they are
-missing. Otherwise (`'xla'`) the DoubleConvs are cuDNN convs in f32.
+rollout) and keeps them under `K1_KEY`; `apply` converts them in the call
+where they are missing. Otherwise (`'xla'`) the DoubleConvs are cuDNN
+convs in f32.
 
 `apply(..., spatial=)` runs on this rank's tiles of a grid split over the
 mesh axes y and x (distributed/spatial.py): x, out and every state are
@@ -41,7 +43,7 @@ from typing import Sequence, Tuple
 import torch
 
 from ..core.config import ModelConfig
-from ..ops.double_conv import fused_double_conv, prepare
+from ..ops.double_conv import fused_double_conv, prepare, supported
 from .blocks import (
     conv2d,
     conv_transpose2d,
@@ -69,14 +71,23 @@ def prepare_params(params, cfg: ModelConfig):
     return prepare_k1(params, cfg) if uses_kernel(cfg) else params
 
 
+def k1_takes(p, cins, post=None) -> bool:
+    """Whether K1 takes the DoubleConv `p` (with the head `post`) on input
+    parts of `cins` channels, from the weights' shapes alone."""
+    cm, co = int(p["c1"]["w"].shape[0]), int(p["c2"]["w"].shape[0])
+    ce = co if post is None else int(post["w"].shape[0])
+    return supported(1, 1, cins, cm, co, ce)
+
+
 def prepare_k1(params, cfg: ModelConfig):
-    """The params with each DoubleConv's K1 weights converted once
-    (`ops.double_conv.prepare`, the outc head folded into `decode[0]`'s)
-    and kept under `K1_KEY`, on the weights' device."""
+    """The params with the K1 weights of each DoubleConv that K1 takes
+    (`k1_takes`) converted once (`ops.double_conv.prepare`, the outc head
+    folded into `decode[0]`'s) and kept under `K1_KEY`, on the weights'
+    device."""
 
     def prep(p, post=None):
-        if K1_KEY in p:  # prepared already
-            return p
+        if K1_KEY in p or not k1_takes(p, int(p["c1"]["w"].shape[1]), post):
+            return p  # prepared already, or a DoubleConv for cuDNN
         return dict(p, **{K1_KEY: prepare(p if post is None else dict(p, post=post))})
 
     out = dict(params, inc=prep(params["inc"]))
@@ -182,7 +193,7 @@ def apply(
         lv, enter, leave = spatial.level, spatial.enter, spatial.leave
 
     def dconv(p, *parts, post=None, d=0):
-        if use_kernel:
+        if use_kernel and k1_takes(p, [int(t.shape[-1]) for t in parts], post):
             pw = p.get(K1_KEY)  # prepared by `prepare_k1`, else converted there
             if pw is None:
                 pw = p if post is None else dict(p, post=post)

@@ -13,10 +13,14 @@ Weight layouts are the port's (models/blocks.py): a conv's OIHW
 block-diagonalised on their first two axes, group-major on both.
 
 `double_conv_mode='pallas'` (with precision 'default' and PReLU or ReLU)
-sends every DoubleConv to the packed fused CUDA kernel K3
-(ops/packed_double_conv.py): 14 per step at depth 4, with the 1x1 outc
-head folded into the last one, at every g up to 64 for the default model
-(widths up to 512); above that it raises, with no fallback to cuDNN. A multi-part input goes to it in plain
+sends each DoubleConv that the packed fused CUDA kernel K3 takes
+(`ops.packed_double_conv.supported`: mid, out and head widths at most
+512, at most 3 input parts) to it, and the others to the cuDNN convs, as
+the JAX package routes by `fused_supported` between its kernel and XLA
+(`packed.py:128-160`): the default model's 14 a step at depth 4 at every
+g up to 64, with the 1x1 outc head folded into the last one, and none at
+g = 128 (widths 1024). The choice is made from shapes before any launch,
+and a launch that fails raises. A multi-part input goes to K3 in plain
 part-major order with the per-part weight rows (`_split_packed_rows`)
 concatenated to match, as the TPU wrapper does; the group-aware
 `_gconcat` order is the cuDNN branch's. `rollout_packed` converts the K3
@@ -34,8 +38,6 @@ import torch
 
 from ..core.config import Config, ModelConfig
 from ..core.device import resolve_device
-from ..ops.packed_double_conv import MAX_PARTS as K3_MAX_PARTS
-from ..ops.packed_double_conv import MAX_WIDTH as K3_MAX_WIDTH
 from ..ops.packed_double_conv import packed_double_conv, prepare
 from ..ops.packed_double_conv import supported as k3_supported
 from ..ops.spectral import SpectralPML, resolve_mode
@@ -131,60 +133,29 @@ def _k3_params(p, w1s, post=None) -> dict:
     return fp
 
 
-def _k3_sites(params, cfg: ModelConfig, inc_splits):
-    """(name, DoubleConv params, per-group input widths, head or None) of
-    every DoubleConv that `apply_packed` sends to K3, in call order."""
-    f, s = cfg.features, cfg.state_channels
-    sites = [("inc", params["inc"], tuple(inc_splits), None)]
-    for d, blk in enumerate(params["enc"]):
-        splits = (f, s) if d < cfg.state_depth else (f,)
-        sites.append((f"enc[{d}].conv_signal", blk["conv_signal"], splits, None))
-        if d < cfg.state_depth:
-            sites.append((f"enc[{d}].conv_state", blk["conv_state"], splits, None))
-    for i, p in enumerate(params["decode"]):
-        sites.append((f"decode[{i}]", p, (f,) if i == cfg.depth else (f, f),
-                      params["outc"] if i == 0 else None))
-    return sites
-
-
-def check_k3_shapes(params, cfg: ModelConfig, g: int, inc_splits=None,
-                    packed: bool = True) -> None:
-    """Raise ValueError, naming the DoubleConv and its widths, if K3 does
-    not take one of them at group size `g`. `params` are packed (widths
-    already g-fold) or, with `packed=False`, the unpacked ones. A refusal
-    is deliberate: the port does not fall back to cuDNN in 'pallas' mode
-    (the JAX package falls back to XLA convs there); K3's mid, out and head
-    widths stop at 512, the widest at which the JAX kernel runs, so the
-    default model runs at g <= 64."""
-    inc_splits = (cfg.in_channels,) if inc_splits is None else tuple(inc_splits)
-    scale = 1 if packed else g
-    for name, p, splits, post in _k3_sites(params, cfg, inc_splits):
-        cins = [g * c for c in splits]
-        cm = scale * int(p["c1"]["w"].shape[0])
-        co = scale * int(p["c2"]["w"].shape[0])
-        ce = co if post is None else scale * int(post["w"].shape[0])
-        if not k3_supported(1, 1, cins, cm, co, ce):
-            raise ValueError(
-                f"K3 does not take {name} at g={g}: parts {cins} -> {cm} -> "
-                f"{co} -> {ce} channels (at most {K3_MAX_PARTS} parts and "
-                f"{K3_MAX_WIDTH} mid, out and head channels); use a smaller g "
-                f"or double_conv_mode='xla'")
+def k3_takes(p, cins, post=None) -> bool:
+    """Whether K3 takes the packed DoubleConv `p` (with the head `post`)
+    on input parts of `cins` channels, from the weights' shapes alone."""
+    cm, co = int(p["c1"]["w"].shape[0]), int(p["c2"]["w"].shape[0])
+    ce = co if post is None else int(post["w"].shape[0])
+    return k3_supported(1, 1, cins, cm, co, ce)
 
 
 def prepare_k3(packed_params, cfg: ModelConfig, g: int, inc_splits=None):
-    """The packed params with each DoubleConv's K3 weights converted once
-    (`ops.packed_double_conv.prepare`) and kept under `K3_KEY`.
+    """The packed params with the K3 weights of each DoubleConv that K3
+    takes (`k3_takes`) converted once (`ops.packed_double_conv.prepare`)
+    and kept under `K3_KEY`; the others are left for cuDNN.
 
     `inc_splits` are the per-group widths of the input parts of `inc`
     (default one part of `cfg.in_channels`; `rollout_packed` feeds three
-    of 2). Every shape is checked (`check_k3_shapes`) before any weight is
-    converted. `apply_packed` takes a prepared entry as it is (the K3
-    wrapper raises if its input parts differ) and converts on the fly
-    where there is none."""
+    of 2). `apply_packed` takes a prepared entry as it is (the K3 wrapper
+    raises if its input parts differ) and converts on the fly where there
+    is none."""
     inc_splits = (cfg.in_channels,) if inc_splits is None else tuple(inc_splits)
-    check_k3_shapes(packed_params, cfg, g, inc_splits)
 
     def prep(p, splits, post=None):
+        if not k3_takes(p, [g * c for c in splits], post):
+            return p
         w1s = (_split_packed_rows(p["c1"]["w"], splits, g) if len(splits) > 1
                else (p["c1"]["w"],))
         return dict(p, **{K3_KEY: prepare(_k3_params(p, w1s, post))})
@@ -226,7 +197,7 @@ def apply_packed(
     use_kernel = uses_kernel(cfg)
 
     def dconv(p, *parts, post=None):
-        if use_kernel:
+        if use_kernel and k3_takes(p, [int(t.shape[-1]) for t in parts], post):
             parts = tuple(t.contiguous() for t in parts)
             pw = p.get(K3_KEY)  # prepared by `prepare_k3`, else converted here
             if pw is None:
@@ -348,8 +319,6 @@ def rollout_packed(
     if mode != "matmul":
         raise ValueError("rollout_packed supports the matmul operator only")
     mcfg = cfg.model
-    if uses_kernel(mcfg):  # refuse K3's shapes before anything is converted
-        check_k3_shapes(params, mcfg, g, inc_splits=(2, 2, 2), packed=False)
     op = op.to(dev)
     source = _on(source, dev)
     packed = pack_params(params_to(params, dev), g)

@@ -20,7 +20,6 @@ futures. Nothing falls back to another device or path.
 
 from __future__ import annotations
 
-import os
 import queue
 import threading
 import time
@@ -33,7 +32,7 @@ import numpy as np
 import torch
 
 from .solvers.auto import choose_solver
-from .solvers.iterative import IterativeSolver
+from .solvers.iterative import IterativeSolver, load_solver
 
 
 @dataclass
@@ -109,20 +108,11 @@ class SolverService:
     @classmethod
     def from_checkpoint(cls, path: str, config: ServeConfig = None, *,
                         device=None) -> "SolverService":
-        """Service over the weights at `path`: a flat params `.npz` (read
-        with the default config, `IterativeSolver.from_params_npz`) or a
-        reference `.ckpt` (with its own config). An orbax directory raises
-        ValueError. Runs on `device`, by default the card (raises without
-        one)."""
-        if os.path.isdir(path):
-            from .weights import ORBAX_REFUSAL
-
-            raise ValueError(f"{path} {ORBAX_REFUSAL}")
-        if path.endswith(".npz"):
-            solver = IterativeSolver.from_params_npz(path, device=device)
-        else:
-            solver = IterativeSolver.from_reference_checkpoint(path, device=device)
-        return cls(solver, config)
+        """Service over the weights at `path` (`solvers/iterative.load_solver`):
+        an orbax run directory at its best step or a flat params `.npz`,
+        both with the default config, or a reference `.ckpt` with its own.
+        Runs on `device`, by default the card (raises without one)."""
+        return cls(load_solver(path, device=device), config)
 
     # -- client API ----------------------------------------------------------
 

@@ -21,6 +21,7 @@ global one.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -442,16 +443,44 @@ class IterativeSolver:
     def from_params_npz(cls, path: str, config: Optional[Config] = None,
                         device=None):
         """Solver from a flat params npz (`weights.load_params_npz`), with
-        the default config unless `config` is given. This is how the
-        weights of an orbax training run reach the port:
-        `tools/export_orbax_npz.py` writes the run's best step as such a
-        file (for example `trained_models/tpu_r2c_best.npz`), since orbax
-        imports JAX and the port does not."""
+        the default config unless `config` is given."""
         from ..weights import load_params_npz
 
         cfg = config or Config()
         return cls(cfg, params=load_params_npz(path, cfg, device=device),
                    device=device)
+
+    @classmethod
+    def from_orbax_checkpoint(cls, directory: str, step: Optional[int] = None,
+                              config: Optional[Config] = None,
+                              best: bool = True, device=None):
+        """Solver from a training run of the JAX package (an orbax
+        checkpoint directory, read without JAX by `train/orbax.py`), with
+        the default config unless `config` is given.
+
+        step=None takes the manifest's best-val_loss step (`best=True`),
+        else, or without scores, the latest; no step raises
+        FileNotFoundError."""
+        from ..train.checkpoint import pick_step
+        from ..weights import load_params_orbax
+
+        cfg = config or Config()
+        step_dir = os.path.join(directory, f"step_{pick_step(directory, step, best)}")
+        return cls(cfg, params=load_params_orbax(step_dir, cfg, device=device),
+                   device=device)
+
+
+def load_solver(path: str, config: Optional[Config] = None, device=None):
+    """`IterativeSolver` from the weights at `path`, as the CLIs take
+    them: an orbax run directory (its best step), a flat params `.npz`
+    (both with the default config unless `config` is given), or a
+    reference `.ckpt` (with its own config unless `config` is given)."""
+    if os.path.isdir(path):
+        return IterativeSolver.from_orbax_checkpoint(path, config=config,
+                                                     device=device)
+    if path.endswith(".npz"):
+        return IterativeSolver.from_params_npz(path, config, device=device)
+    return IterativeSolver.from_reference_checkpoint(path, config, device=device)
 
 
 @torch.no_grad()

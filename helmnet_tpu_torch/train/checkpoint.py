@@ -8,7 +8,10 @@
 - The trainer's own checkpoints (:149-308): a train state (params, Adam
   state, epoch, global step) as one torch file `step_<n>/state.pt`, with
   the JAX package's `manifest.json` semantics (`update_topk`, `best_step`,
-  `latest_step`, `manifest_extra`). Orbax directories are not read here.
+  `latest_step`, `manifest_extra`). `restore_checkpoint` also reads a step
+  that the JAX package wrote with orbax (train/orbax.py), so a run
+  directory may hold steps of both formats; each step is read in its own.
+  The port writes only `state.pt` steps.
 - `save_params_npz`, the flat `p0 ... pN` npz in the JAX package's leaf
   order and HWIO layout, which `helmnet_tpu.train.checkpoint.load_params_npz`
   and the port's `weights.load_params_npz` both read.
@@ -157,17 +160,35 @@ def _step_dir(directory: str, step: int) -> str:
 
 def save_checkpoint(directory: str, step: int, state: dict) -> None:
     """Save a train state (a dict of tensors, nested dicts and lists of
-    them, optimizer state dicts and numbers) as `step_<step>/state.pt`."""
+    them, optimizer state dicts and numbers) as `step_<step>/state.pt`.
+    The step directory is written beside its place and then put there,
+    replacing whatever step of that number was there (orbax's
+    `force=True`), so a step directory holds one format, whole."""
     path = _step_dir(directory, step)
-    os.makedirs(path, exist_ok=True)
-    torch.save(state, os.path.join(path, STATE_FILE))
+    tmp = f"{path}.saving"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    torch.save(state, os.path.join(tmp, STATE_FILE))
+    shutil.rmtree(path, ignore_errors=True)
+    os.replace(tmp, path)
 
 
 def restore_checkpoint(directory: str, step: int, device=None) -> dict:
-    """The train state saved at `step`, its tensors on `device`."""
+    """The train state saved at `step`, its tensors on `device`: the
+    port's `state.pt`, or a step of the JAX package's orbax checkpoints
+    (`train/orbax.train_state`: params, Adam state, the injected learning
+    rate as the one param group's `lr`, epoch, global step)."""
+    from .orbax import is_orbax_step, train_state
+
     dev = resolve_device(device)
-    return torch.load(os.path.join(_step_dir(directory, step), STATE_FILE),
-                      map_location=dev, weights_only=True)
+    path = _step_dir(directory, step)
+    if os.path.isfile(os.path.join(path, STATE_FILE)):
+        return torch.load(os.path.join(path, STATE_FILE), map_location=dev,
+                          weights_only=True)
+    if is_orbax_step(path):
+        return train_state(path, device=dev)
+    raise FileNotFoundError(
+        f"{path} holds neither {STATE_FILE} nor an orbax checkpoint")
 
 
 def _manifest_path(directory: str) -> str:
@@ -243,6 +264,19 @@ def best_step(directory: str):
 
 def manifest_extra(directory: str, step: int) -> dict | None:
     return _load_manifest(directory).get("scheduler", {}).get(str(step))
+
+
+def pick_step(directory: str, step=None, best: bool = True) -> int:
+    """`step`, or else the manifest's best step (`best=True`), or else the
+    latest (the JAX package's `from_orbax_checkpoint` choice); no step
+    raises FileNotFoundError."""
+    if step is None:
+        step = best_step(directory) if best else None
+        if step is None:  # explicit None check: step 0 is valid
+            step = latest_step(directory)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints under {directory}")
+    return step
 
 
 def latest_step(directory: str):

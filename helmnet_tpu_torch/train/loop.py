@@ -831,7 +831,9 @@ class Trainer:
         """Resume from the latest checkpoint in `directory` (the reference's
         resume-from-last.ckpt story, README.md:31); `best=True` restores the
         lowest-val_loss checkpoint instead (Lightning's best-model restore
-        for eval)."""
+        for eval). A step the JAX package wrote with orbax resumes that run:
+        its params, Adam moments and count, learning rate, epoch, global
+        step and the manifest's scheduler state."""
         from .checkpoint import (
             best_step,
             latest_step,
@@ -844,10 +846,22 @@ class Trainer:
             return False
         state = restore_checkpoint(directory, step, device=self.device)
         saved = dict(iter_leaves(state["params"]))
+        for path, leaf in iter_leaves(self.params):
+            if path not in saved or saved[path].shape != leaf.shape:
+                raise ValueError(
+                    f"{directory} step {step}: params leaf {path} does not "
+                    f"match the model's {tuple(leaf.shape)}")
         with torch.no_grad():
             for path, leaf in iter_leaves(self.params):
                 leaf.copy_(saved[path])
-        self.optimizer.load_state_dict(state["opt_state"])
+        # the saved groups' settings over the optimizer's own: all of them
+        # from a state.pt, the learning rate from an orbax step
+        opt = state["opt_state"]
+        groups = [{**mine, **{k: v for k, v in theirs.items() if k != "params"}}
+                  for mine, theirs in zip(self.optimizer.state_dict()["param_groups"],
+                                          opt["param_groups"], strict=True)]
+        self.optimizer.load_state_dict({"state": opt["state"],
+                                        "param_groups": groups})
         self.epoch = int(state["epoch"])
         self.global_step = int(state["global_step"])
         sched = manifest_extra(directory, step)

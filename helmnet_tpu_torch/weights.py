@@ -22,11 +22,13 @@ kernels in the JAX package and OIDHW and ConvTranspose3d's layout here;
 counterpart of `helmnet_tpu.train.loop3d.load_params3d_npz`: 69 leaves
 for the tpu3d_a and tpu3d_het models) convert them the same way.
 
-Orbax checkpoint directories (`checkpoints/`) need orbax, which imports
-JAX, and are not read here: `tools/export_orbax_npz.py` writes a run's
-params as such an npz (`trained_models/tpu_r2c_best.npz` is
-`checkpoints/tpu_r2c` at its best step). The CLIs refuse a directory with
-`ORBAX_REFUSAL`.
+`load_params_orbax(step_dir, cfg)` reads the params of one step of an
+orbax training run (`checkpoints/<run>/step_<n>`, written by
+`helmnet_tpu.train.checkpoint.save_checkpoint`) with `train/orbax.py`,
+numpy alone, and checks them against the same template.
+`tools/export_orbax_npz.py` (optional; needs JAX) writes a run's params
+as a flat npz instead: `trained_models/tpu_r2c_best.npz` is
+`checkpoints/tpu_r2c` at its best step.
 """
 
 from __future__ import annotations
@@ -41,12 +43,6 @@ from .core.device import resolve_device
 from .models.blocks import hwio_to_torch_conv, hwio_to_torch_convtranspose
 from .models.blocks3d import dhwio_to_torch_conv3d, dhwio_to_torch_convtranspose3d
 from .models.registry import get_architecture
-
-ORBAX_REFUSAL = (
-    "is a directory (an orbax checkpoint); the PyTorch port reads a flat "
-    "params .npz or a reference .ckpt. Export the run with "
-    "`python tools/export_orbax_npz.py DIR OUT.npz` and pass OUT.npz")
-
 
 def _model_cfg(cfg) -> ModelConfig:
     return cfg.model if isinstance(cfg, Config) else cfg
@@ -110,10 +106,26 @@ def load_params3d_npz(path: str, cfg, device=None):
                      hybridnet3d.map_leaves, "HybridNet3D", device)
 
 
+def load_params_orbax(step_dir: str, cfg, device=None):
+    """The params of one orbax step (`train/orbax.read_step`) as the
+    port's parameters; a leaf path or shape that does not match the
+    architecture's template raises."""
+    from .train.orbax import read_step
+
+    arch, template = _template(cfg)
+    tree = read_step(step_dir, subtree="params")["params"]
+    found = dict(arch.iter_leaves(tree))
+    want = [p for p, _ in arch.iter_leaves(template)]
+    if list(found) != want:
+        raise ValueError(
+            f"{step_dir} holds {len(found)} params leaves; the "
+            f"{_model_cfg(cfg).architecture} model has {len(want)}")
+    return _checked(template, arch.iter_leaves, arch.map_leaves,
+                    lambda p: (p, found[p]), step_dir, device)
+
+
 def _load_npz(path, template, iter_leaves, map_leaves, name, device):
-    dev = resolve_device(device)
-    leaves = dict(iter_leaves(template))
-    order = list(leaves)
+    order = [p for p, _ in iter_leaves(template)]
     with np.load(path) as f:
         expected = {f"p{i}" for i in range(len(order))}
         if set(f.files) != expected:
@@ -121,14 +133,23 @@ def _load_npz(path, template, iter_leaves, map_leaves, name, device):
                 f"{path} holds {len(f.files)} arrays; the {name} model has "
                 f"{len(order)} leaves p0..p{len(order) - 1}"
             )
-        values = {}
-        for i, p in enumerate(order):
-            a = _to_port_layout(p, f[f"p{i}"])
-            want = tuple(leaves[p].shape)
-            if a.shape != want:
-                raise ValueError(
-                    f"{path}: p{i} ({p}) has port shape {a.shape}, "
-                    f"expected {want}"
-                )
-            values[p] = torch.as_tensor(a, device=dev)
+        index = {p: i for i, p in enumerate(order)}
+        return _checked(template, iter_leaves, map_leaves,
+                        lambda p: (f"p{index[p]} ({p})", f[f"p{index[p]}"]),
+                        path, device)
+
+
+def _checked(template, iter_leaves, map_leaves, value, source, device):
+    """The template with each leaf replaced by `value(path)`'s array in
+    the port's layout; `value` returns (name, JAX-layout array)."""
+    dev = resolve_device(device)
+    values = {}
+    for p, leaf in iter_leaves(template):
+        name, a = value(p)
+        a = _to_port_layout(p, a)
+        want = tuple(leaf.shape)
+        if a.shape != want:
+            raise ValueError(
+                f"{source}: {name} has port shape {a.shape}, expected {want}")
+        values[p] = torch.as_tensor(a, device=dev)
     return map_leaves(template, lambda p, _: values[p])

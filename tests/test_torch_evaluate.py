@@ -10,6 +10,7 @@ PyTorch-Lightning names, written with `torch.save`, with hyper-parameters
 for a 32^2 grid whose PML (4 cells) and source fit.
 """
 
+import os
 import sys
 import types
 
@@ -155,8 +156,22 @@ def test_cli_matches_jax_cli(ckpt, tmp_path, packed):
     np.testing.assert_allclose(got, ref, rtol=1e-3)
 
 
-def test_cli_refuses_orbax_directories(tmp_path):
-    with pytest.raises(SystemExit, match="tools/export_orbax_npz.py"):
+def test_cli_reads_orbax_directories(tmp_path):
+    """An orbax run of the JAX package (checkpoints/tpu_r2c, read at its
+    best step as JAX's CLI reads it) gives the rmse of the npz of that
+    step, exactly; a directory with no step raises FileNotFoundError."""
+    from tests.torch_solver_cases import R2C_NPZ, R2C_ORBAX, ROOT
+
+    if not os.path.isdir(R2C_ORBAX):
+        pytest.skip("checkpoints/tpu_r2c is not present")
+    name = "evolution_of_model_RMSE_on_test_set.npy"
+    args = ["--testset", os.path.join(ROOT, "datasets", "splitted_96", "testset.npz"),
+            "--limit", "2", "--iterations", "3", "--batch", "2", "--platform", "cpu"]
+    for ckpt, out in ((R2C_ORBAX, "orbax"), (R2C_NPZ, "npz")):
+        assert teval.main(["--checkpoint", ckpt, "--out", str(tmp_path / out)] + args) == 0
+    got, want = np.load(tmp_path / "orbax" / name), np.load(tmp_path / "npz" / name)
+    assert got.shape == (2, 3) and np.array_equal(got, want)
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         teval.main(["--checkpoint", str(tmp_path), "--testset", "x.npz",
                     "--platform", "cpu"])
 

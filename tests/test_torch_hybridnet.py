@@ -140,15 +140,47 @@ def test_pallas_mode_routes_every_double_conv(monkeypatch):
     assert sum(post for post, _ in calls) == 1
 
 
-def test_pallas_mode_does_not_fall_back_on_wide_models():
-    """A width the kernel does not take raises in 'pallas' mode instead of
-    running the DoubleConvs another way."""
+def test_pallas_mode_does_not_fall_back_on_wide_models(monkeypatch):
+    """A width K1 does not take goes to the cuDNN convs by its shape before
+    any launch, as JAX's 'pallas' mode goes to XLA: no call reaches the
+    kernel wrapper, `prepare_k1` converts nothing, and the output is the
+    'xla' mode's to the bit. The wrapper itself still raises on it."""
+    from helmnet_tpu_torch.ops import double_conv as dc
+
+    calls = []
+    monkeypatch.setattr(th, "fused_double_conv",
+                        lambda p, x: calls.append(p) or dc.fused_double_conv(p, x))
     cfg = TModelConfig(features=24, depth=2, state_depth=2,
                        precision="default", double_conv_mode="pallas")
     params = th.init_params(torch.Generator().manual_seed(0), cfg)
-    x = torch.zeros(1, 16, 16, cfg.in_channels)
+    x = torch.randn(1, 16, 16, cfg.in_channels, generator=torch.Generator().manual_seed(1))
+    states = th.init_states(1, 16, cfg)
+    prepared = th.prepare_k1(params, cfg)
+    assert th.K1_KEY not in prepared["inc"]
+    assert all(th.K1_KEY not in p for p in prepared["decode"])
+    out, _ = th.apply(prepared, x, states, cfg=cfg)
+    assert calls == []
+    xla = dataclasses.replace(cfg, double_conv_mode="xla")
+    torch.testing.assert_close(out, th.apply(params, x, states, cfg=xla)[0],
+                               rtol=0, atol=0)
     with pytest.raises(ValueError, match="unsupported"):
-        th.apply(params, x, th.init_states(1, 16, cfg), cfg=cfg)
+        dc.fused_double_conv(params["inc"], (x,))
+
+
+def test_pallas_mode_at_32_features_matches_jax():
+    """A 'pallas' HybridNet at 32 features: JAX's `pix_supported` takes
+    none of its DoubleConvs (more than 16 channels), so JAX runs them all
+    on XLA, and the port all on cuDNN's convs (the CPU's here); 'xla'
+    mode's tolerance, 1e-4 * max|ref|."""
+    kw = dict(SMALL, features=32, precision="default", double_conv_mode="pallas")
+    jcfg, tcfg = JModelConfig(**kw), TModelConfig(**kw)
+    jp = jax_layout_params(tcfg)
+    x, states = _inputs(jcfg, seed=5)
+    jout, jst = jax.jit(jh.apply, static_argnames="cfg")(jp, x, states, cfg=jcfg)
+    tout, tst = th.apply(from_jax_params(jp, device="cpu"), torch.from_numpy(x),
+                         tuple(torch.from_numpy(s) for s in states), cfg=tcfg)
+    _close(tout.numpy(), np.asarray(jout), 1e-4)
+    _close(th.flatten_states(tst).numpy(), np.asarray(jh.flatten_states(jst)), 1e-4)
 
 
 def test_flatten_round_trip_and_layout():

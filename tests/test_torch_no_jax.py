@@ -1,6 +1,8 @@
 """The port stands alone: no module under helmnet_tpu_torch/, and not
-chip_smoke.py, imports JAX or the JAX package; its kernels are built by
-plain nvcc; and its entry points refuse to fall back to the CPU.
+chip_smoke.py, imports JAX or the JAX package, nor orbax, tensorstore or
+zstandard (the port reads orbax checkpoints with train/orbax.py and
+core/zstd.py); its kernels are built by plain nvcc; and its entry points
+refuse to fall back to the CPU.
 """
 
 import ast
@@ -17,7 +19,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "helmnet_tpu_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "helmnet_tpu")
+FORBIDDEN = ("jax", "jaxlib", "helmnet_tpu", "orbax", "tensorstore", "zstandard")
 
 
 def _imported_modules(path: Path):
@@ -50,7 +52,7 @@ def test_package_imports_with_jax_blocked():
     ]
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'helmnet_tpu'):\n"
+        f"for name in {FORBIDDEN!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {modules!r}:\n"

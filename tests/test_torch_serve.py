@@ -250,21 +250,28 @@ def test_served_against_jax_service():
 
 def test_from_checkpoint(tmp_path):
     """`from_checkpoint` reads the params npz onto the device it is given,
-    refuses an orbax directory, and without a card and without a device
-    raises instead of falling back to the CPU."""
-    from helmnet_tpu_torch.weights import ORBAX_REFUSAL
-    from tests.torch_solver_cases import R2C_NPZ
+    and an orbax run of the JAX package (checkpoints/tpu_r2c, its best
+    step, whose params the npz holds) to the same params; an empty
+    directory raises FileNotFoundError, and without a card and without a
+    device it raises instead of falling back to the CPU."""
+    from helmnet_tpu_torch.models.hybridnet import iter_leaves
+    from tests.torch_solver_cases import R2C_NPZ, R2C_ORBAX
 
-    service = SolverService.from_checkpoint(R2C_NPZ, ServeConfig(max_batch=2),
-                                            device="cpu")
+    services = [SolverService.from_checkpoint(path, ServeConfig(max_batch=2),
+                                              device="cpu")
+                for path in (R2C_NPZ, R2C_ORBAX)]
     try:
-        assert service.solver.device == torch.device("cpu")
-        assert service.solver.cfg.model.features == 8
+        for service in services:
+            assert service.solver.device == torch.device("cpu")
+            assert service.solver.cfg.model.features == 8
+        for (p, a), (_, b) in zip(iter_leaves(services[0].solver.params),
+                                  iter_leaves(services[1].solver.params)):
+            assert torch.equal(a, b), p
     finally:
-        service.shutdown()
-    with pytest.raises(ValueError, match="export_orbax_npz"):
+        for service in services:
+            service.shutdown()
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         SolverService.from_checkpoint(str(tmp_path), device="cpu")
-    assert "export_orbax_npz" in ORBAX_REFUSAL
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             SolverService.from_checkpoint(R2C_NPZ)

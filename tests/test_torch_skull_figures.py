@@ -247,11 +247,12 @@ def test_cli_produce_figures(tmp_path, capsys):
     """The CLI on 2 generated maps at 96^2 (the default config's grid), 20
     iterations; every figure lands in --out. The f64 truth histograms
     (about 15 s a map at 96^2 on this CPU) are left to
-    `test_truth_errors_and_their_figure`, at 32^2. `--orbax` and a
-    directory checkpoint are refused."""
+    `test_truth_errors_and_their_figure`, at 32^2. `--orbax` reads an orbax
+    run of the JAX package (checkpoints/tpu_r2c at `--step 940`) and draws
+    its figures for 1 map."""
     pytest.importorskip("matplotlib")
     from helmnet_tpu_torch.cli import produce_figures
-    from helmnet_tpu_torch.weights import ORBAX_REFUSAL
+    from tests.torch_solver_cases import R2C_ORBAX
 
     out = tmp_path / "figs"
     rc = produce_figures.main([
@@ -267,10 +268,14 @@ def test_cli_produce_figures(tmp_path, capsys):
         _drawn(str(out / name))
     assert sorted(p.name for p in out.iterdir()) == sorted(names)
     assert "l_inf vs GMRES: median" in text
-    for argv in (["--orbax", str(tmp_path)], ["--checkpoint", str(tmp_path)]):
-        with pytest.raises(SystemExit, match="export_orbax_npz"):
-            produce_figures.main(argv + ["--platform", "cpu"])
-    assert "export_orbax_npz" in ORBAX_REFUSAL
+    if not os.path.isdir(R2C_ORBAX):
+        pytest.skip("checkpoints/tpu_r2c is not present")
+    assert produce_figures.main([
+        "--orbax", R2C_ORBAX, "--step", "940", "--out", str(tmp_path / "orbax"),
+        "--num-samples", "1", "--iterations", "5", "--examples", "0",
+        "--no-truth-histograms", "--platform", "cpu"]) == 0
+    _drawn(str(tmp_path / "orbax" / "residual_rmse_testset.png"))
+    assert "l_inf vs GMRES: median" in capsys.readouterr().out
 
 
 def test_skull_solve_helper(small_solver):

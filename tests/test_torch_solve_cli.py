@@ -3,15 +3,15 @@
 - on a 32^2 map it prints JAX's plan (method and kwargs), solves it and
   writes `--out`, whose wavefield is JAX's within 2e-3 max|u|
   (tests/test_gmres.py:35) and whose trajectory ends below the tolerance;
-- with the trained weights (the port's npz, JAX's orbax directory) both
-  choose the learned plan, and the port's learned solve runs to its end
-  at 96^2;
+- with the trained weights (JAX's orbax directory, which the port reads
+  too, and the port's npz of it) both choose the learned plan, and the
+  port's learned solve runs to its end at 96^2;
 - a 24^3 cube takes JAX's 3D plan (`cslp3d`) and the same solution
   within 2e-3 max|u| when both read the source from `--source-npz` (JAX's
   CLI cannot build its default 3D source: its `cli/solve.py:105` imports
   a module that does not exist), and the port builds the default point
   source itself;
-- an orbax directory is refused with `cli/evaluate`'s message, and a
+- a directory with no checkpoint step raises FileNotFoundError, and a
   source of the wrong shape raises SystemExit.
 """
 
@@ -68,9 +68,10 @@ def test_learned_plan_with_the_trained_weights(maps, tmp_path, capsys):
         pytest.skip("checkpoints/tpu_r2c is not present")
     assert jsolve.main(["--sos", maps, "--checkpoint", R2C_ORBAX, "--dry-run"]) == 0
     jplan = _plan(capsys.readouterr().out)
-    assert tsolve.main(["--sos", maps, "--checkpoint", R2C_NPZ, "--dry-run",
-                        "--platform", "cpu"]) == 0
-    assert _plan(capsys.readouterr().out) == jplan
+    for ckpt in (R2C_ORBAX, R2C_NPZ):
+        assert tsolve.main(["--sos", maps, "--checkpoint", ckpt, "--dry-run",
+                            "--platform", "cpu"]) == 0
+        assert _plan(capsys.readouterr().out) == jplan
     assert jplan[0] == "learned"
 
 
@@ -89,7 +90,7 @@ def test_learned_solve_runs(tmp_path, capsys):
 
 
 def test_refusals(maps, tmp_path):
-    with pytest.raises(SystemExit, match="tools/export_orbax_npz.py"):
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
         tsolve.main(["--sos", maps, "--checkpoint", str(tmp_path), "--platform", "cpu"])
     bad = tmp_path / "src.npz"
     np.savez(bad, src=np.zeros((16, 16, 2), np.float32))

@@ -7,9 +7,10 @@ Restores the run through the JAX package
 (`IterativeSolver.from_orbax_checkpoint`: the manifest's best step unless
 `--step` is given) and writes its params with
 `helmnet_tpu.train.checkpoint.save_params_npz` (leaves `p0 ... pN` in the
-JAX tree order). The PyTorch port reads that file with
-`helmnet_tpu_torch.weights.load_params_npz` and cannot read orbax itself,
-since orbax imports JAX. Runs on the CPU.
+JAX tree order), which `helmnet_tpu_torch.weights.load_params_npz`
+reads. Optional: the PyTorch port reads orbax runs itself, without JAX
+(`helmnet_tpu_torch/train/orbax.py`); the tool reproduces the committed
+`trained_models/tpu_r2c_best.npz`. Needs JAX; runs on the CPU.
 """
 
 import argparse
